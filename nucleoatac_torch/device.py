@@ -8,6 +8,7 @@ resolved device also pins full-f32 matmul and convolution precision.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,3 +37,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     set_precision_flags()
     return dev
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``; CUDA uploads go from pinned
+    memory without blocking the host."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,17 +1,24 @@
-"""TorchEngine: the batched window chain of the fused occ+nuc pass.
+"""TorchEngine: the batched window chains of the occ and nuc stages.
 
-Counterpart of nucleoatac_tpu/models/engine.py :: DeviceEngine for the
-main path of ``nucleoatac run`` (wire v7 pool fragments, wire v9 2-bit or
-nibble sequence codes, exact occ and nuc). One call per batch:
+Counterpart of nucleoatac_tpu/models/engine.py :: DeviceEngine for every
+single-host ``nucleoatac`` command, exact occ and nuc:
 
-  pool raster -> occupancy LL -> wire-v8 occ bytes          (occ branch)
-  sequence codes -> PWM log bias -> B0 -> K2 nuc scores
-      -> margin-extended norm -> u16 bytes                  (nuc branch)
-  -> one uint8 row per window (unpack_run decodes it on the host).
+  raster (wire v7 pool or wire v6 delta12 records)
+    -> occupancy LL -> wire-v8 occ bytes                    (occ branch)
+  log bias (PWM over sequence codes, or an uploaded f32 row) -> B0
+    -> template xcorr -> margin-extended norm -> u16 bytes  (nuc branch)
 
-Tables live as tensors on an explicit ``torch.device``. On a CUDA device
-the nuc scores come from the hand-written kernel (ops/nuc_scores.py); on
-the CPU from its plain version. The host decoders are the reference's.
+The fused pass (run_step_pool*) packs both branches into one uint8 row per
+window; the standalone stages call one branch each (occ_step_delta12_p2,
+nuc_step_delta12_*_m16) through the same programs, so both paths quantize
+the same f32 norm.
+
+The template xcorr follows ``cfg.window.conv``: "diag" runs the K2 kernel
+(ops/nuc_scores.py, xcorr and epilogue in one launch); "diag_pallas" runs
+two K1 launches (ops/diag_xcorr.py) and the epilogue as torch ops, as the
+reference's Pallas route does. On the CPU each kernel wrapper runs its
+plain version. Tables live as tensors on an explicit ``torch.device``;
+the host decoders are the reference's.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from nucleoatac_torch.models.params import (
     size_probs64,
 )
 from nucleoatac_torch.ops.biasmat import bias_mat_batch
+from nucleoatac_torch.ops.diag_xcorr import nuc_conv_outputs
 from nucleoatac_torch.ops.nuc_scores import nuc_scores
 from nucleoatac_torch.ops.occupancy import occupancy_packed2
 from nucleoatac_torch.ops.pwmseq import (
@@ -36,7 +44,15 @@ from nucleoatac_torch.ops.pwmseq import (
     unpack_2bit_codes,
     unpack_nibble_codes,
 )
-from nucleoatac_torch.ops.rasterize import rasterize_pool_batch
+from nucleoatac_torch.ops.rasterize import (
+    rasterize_delta12_batch,
+    rasterize_pool_batch,
+)
+from nucleoatac_torch.ops.xcorr import finish_scores, pad_valid
+
+# template-xcorr routes by cfg.window.conv; the reference's "direct" (two
+# XLA convolutions, kept there for comparison) is not ported
+CONV_ROUTES = ("diag", "diag_pallas")
 
 
 class TorchEngine:
@@ -49,10 +65,21 @@ class TorchEngine:
         pwm=None,
         device: str | torch.device = "cuda",
         tables: dict | None = None,
+        conv: str | None = None,
     ):
         """``tables`` (numpy, by DeviceEngine attribute name; see
-        models/params.py) replaces the tables built from mix/vmat/pwm."""
+        models/params.py) replaces the tables built from mix/vmat/pwm.
+        ``conv`` (default ``cfg.window.conv``) picks the xcorr route."""
         self.cfg = cfg
+        self.conv = conv or cfg.window.conv
+        if self.conv == "direct":
+            raise NotImplementedError(
+                "conv='direct' (two XLA convolutions in the reference, kept "
+                "there for comparison) is not ported (ROADMAP.md); use "
+                "'diag' or 'diag_pallas'"
+            )
+        if self.conv not in CONV_ROUTES:
+            raise ValueError(f"conv={self.conv!r}; expected one of {CONV_ROUTES}")
         self.device = resolve_device(device)
         self.width = cfg.window.width(cfg.occ, cfg.vmat)
         self.halo = cfg.window.halo(cfg.occ, cfg.vmat)
@@ -73,7 +100,7 @@ class TorchEngine:
         self.core_lo = self.halo
         self.core_hi = self.width - self.halo
         self.core = cfg.window.core
-        self.steps = 0  # batches dispatched through run_step_pool*
+        self.steps = 0  # nuc batches dispatched (every _nucm call)
 
     def smooth_margin(self) -> int:
         """Columns of norm needed on each side of the core to reproduce the
@@ -89,6 +116,14 @@ class TorchEngine:
         return rasterize_pool_batch(
             pool, table, emax, self.cfg.sizes.lower, self.cfg.sizes.upper,
             self.width,
+        )
+
+    def _raster_delta12(self, buf):
+        """Wire v6 records; the record count E comes from the buffer width
+        (E//2 + E bytes, E even)."""
+        return rasterize_delta12_batch(
+            buf, 2 * buf.shape[1] // 3, self.cfg.sizes.lower,
+            self.cfg.sizes.upper, self.width,
         )
 
     def _logbias_2bit(self, packed2, esc):
@@ -115,15 +150,31 @@ class TorchEngine:
 
     def _nucm(self, mat, log_bias):
         """f32 [B, core + 2m] norm with smooth margins. The nuc-range rows
-        of the raster go to K2 as a batch-strided view (no copy)."""
+        of the raster go to the kernels as a batch-strided view (no
+        copy)."""
+        self.steps += 1
         vlo = self.cfg.vmat.lower - self.cfg.sizes.lower
         vup = self.cfg.vmat.upper - self.cfg.sizes.lower
-        sc = nuc_scores(
-            mat[:, vlo:vup], self._bias(log_bias),
-            *self.tables["_diag_kernels"], self.cfg.nuc.var_floor,
-        )
+        fmat, b0 = mat[:, vlo:vup], self._bias(log_bias)
+        tabs = self.tables["_diag_kernels"]
+        if self.conv == "diag_pallas":
+            # the reference's _convs_impl + _finish_impl: valid outputs
+            # padded dyad-aligned to W, then the elementwise epilogue
+            fo, bo = nuc_conv_outputs(fmat, b0, *tabs)
+            K = tabs[0].shape[1]
+            norm = finish_scores(
+                pad_valid(fo, self.width, K), pad_valid(bo, self.width, K),
+                self.cfg.nuc.var_floor,
+            ).norm
+        else:
+            norm = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)[:, 0]
         m = self.smooth_margin()
-        return sc[:, 0, self.core_lo - m : self.core_lo + self.core + m]
+        return norm[:, self.core_lo - m : self.core_lo + self.core + m]
+
+    def _nucm16(self, mat, log_bias):
+        """u16-packed _nucm: the fused and the standalone nuc paths both
+        quantize through here, so equal rasters give equal bytes."""
+        return self._u16(self._nucm(mat, log_bias))
 
     @staticmethod
     def _u16(x: torch.Tensor) -> torch.Tensor:
@@ -161,20 +212,30 @@ class TorchEngine:
     def run_step_pool(self, pool, table, packed_codes, emax: int):
         """Wire v7 fragments + nibble sequence codes (the fallback when a
         batch has more N bases than the 2-bit escape list holds)."""
-        self.steps += 1
         mat = self._raster_pool(pool, table, emax)
         occ2 = self._occ_packed2(mat)
-        norm16 = self._u16(self._nucm(mat, self._logbias_nib(packed_codes)))
-        return self._pack_run(occ2, norm16)
+        return self._pack_run(occ2, self._nucm16(mat, self._logbias_nib(packed_codes)))
 
     def run_step_pool2(self, pool, table, packed2, esc, emax: int):
         """Wire v7 fragments + wire v9 2-bit sequence plane (the main
         path's dispatch)."""
-        self.steps += 1
         mat = self._raster_pool(pool, table, emax)
         occ2 = self._occ_packed2(mat)
-        norm16 = self._u16(self._nucm(mat, self._logbias_2bit(packed2, esc)))
-        return self._pack_run(occ2, norm16)
+        return self._pack_run(occ2, self._nucm16(mat, self._logbias_2bit(packed2, esc)))
+
+    def occ_step_delta12_p2(self, buf):
+        """Standalone occ: wire v6 records -> wire v8 occ bytes."""
+        return self._occ_packed2(self._raster_delta12(buf))
+
+    def nuc_step_delta12_seq_m16(self, buf, packed_codes):
+        """Standalone nuc: wire v6 records + nibble sequence codes -> u16
+        norm with smooth margins."""
+        return self._nucm16(self._raster_delta12(buf), self._logbias_nib(packed_codes))
+
+    def nuc_step_delta12_m16(self, buf, log_bias):
+        """Standalone nuc from an uploaded f32 log-bias row [B, W] (the
+        ``--bias_track`` path, engine built without a PWM)."""
+        return self._nucm16(self._raster_delta12(buf), log_bias)
 
     # ---------------- host decoders (the reference's, verbatim) --------
     def unpack_run(self, buf: np.ndarray):

@@ -1,7 +1,9 @@
 """Fused occ+nuc pass: one upload, one download per window batch.
 
-Counterpart of nucleoatac_tpu/models/fused.py, pool transfer only (the
-main path). Per batch the driver uploads the wire-v9 sequence plane and a
+Counterpart of nucleoatac_tpu/models/fused.py, pool branch: the fused pass
+always uploads wire v7 (run_pipeline sends any other transfer to the
+two-pass stages, whose outputs are byte-identical). Per batch the pass
+uploads the wire-v9 sequence plane and a
 12-byte table row per window, dispatches TorchEngine.run_step_pool2 (or
 run_step_pool when a batch's N count overflows the 2-bit escape list)
 against the device-resident fragment pool of the batch's group, and
@@ -15,15 +17,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
-import torch
 
 from nucleoatac_tpu.config import RunConfig
 from nucleoatac_tpu.core.chunk import ChunkList
 from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
 from nucleoatac_tpu.core.mixture import FragmentMixDistribution
 from nucleoatac_tpu.io.bam import BamFragments
-from nucleoatac_tpu.io.tabix import TabixWriter
 from nucleoatac_tpu.models.data import ChunkAssembler, tile_chunks
+from nucleoatac_torch.device import to_device
 from nucleoatac_torch.models.engine import TorchEngine
 from nucleoatac_torch.models.nuc import (
     NucStage,
@@ -31,7 +32,9 @@ from nucleoatac_torch.models.nuc import (
     SeqCodesProvider,
     host_smooth,
 )
+from nucleoatac_torch.models.nuc import open_writers as nuc_open_writers
 from nucleoatac_torch.models.occ import OccStage, OccStageResult, _pipelined
+from nucleoatac_torch.models.occ import open_writers as occ_open_writers
 
 
 def fused_supported(cfg: RunConfig, engine: TorchEngine) -> bool:
@@ -43,15 +46,6 @@ def fused_supported(cfg: RunConfig, engine: TorchEngine) -> bool:
         and cfg.nuc.exact
         and cfg.occ.exact
     )
-
-
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``device``; CUDA uploads go from pinned
-    memory without blocking the host."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _timers_enabled() -> bool:
@@ -72,32 +66,12 @@ def run_fused(
     out_prefix: Optional[str] = None,
     keep_tracks: bool = True,
 ) -> Tuple[OccStageResult, NucStageResult]:
-    if cfg.window.transfer != "pool":
-        raise NotImplementedError(
-            f"transfer={cfg.window.transfer!r}: nucleoatac_torch ports the "
-            "pool transfer only; delta12 and delta are not ported yet "
-            "(ROADMAP.md Queue 1)"
-        )
     eng = engine
     occ_res = OccStageResult(mix=mix, fragmentsizes=fs, chunks=chunks)
     nuc_res = NucStageResult()
 
-    occ_writers, nuc_writers = {}, {}
-    if out_prefix:
-        occ_writers = {
-            "occ": TabixWriter(f"{out_prefix}.occ.bedgraph.gz"),
-            "lower": TabixWriter(f"{out_prefix}.occ.lower_bound.bedgraph.gz"),
-            "upper": TabixWriter(f"{out_prefix}.occ.upper_bound.bedgraph.gz"),
-            "peaks": TabixWriter(f"{out_prefix}.occpeaks.bed.gz"),
-        }
-        nuc_writers = {
-            "norm": TabixWriter(f"{out_prefix}.nucleoatac_signal.bedgraph.gz"),
-            "smooth": TabixWriter(
-                f"{out_prefix}.nucleoatac_signal.smooth.bedgraph.gz"
-            ),
-            "pos": TabixWriter(f"{out_prefix}.nucpos.bed.gz"),
-            "red": TabixWriter(f"{out_prefix}.nucpos.redundant.bed.gz"),
-        }
+    occ_writers = occ_open_writers(out_prefix)
+    nuc_writers = nuc_open_writers(out_prefix)
 
     tiles = tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)
     occ_stage.prepare_exact(mix)

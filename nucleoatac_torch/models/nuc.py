@@ -1,23 +1,35 @@
-"""Nuc stage pieces used by the fused run: V-plot template dyad calling
-with f64-exact selection.
+"""`nucleoatac nuc` stage: V-plot template dyad calling with f64-exact
+selection.
 
 Counterpart of nucleoatac_tpu/models/nuc.py. The host logic is the
-reference's (sequence-code rows, host smoothing, f64-certified
-selection); the device scores arrive through the fused driver
-(models/fused.py). The standalone ``NucStage.run`` driver, the legacy
-non-exact selection and ``BiasTrackSource`` are not ported yet.
+reference's (sequence-code rows, bias tracks, host smoothing,
+f64-certified selection). The device scores arrive through the fused
+pass (models/fused.py) or through ``NucStage.run``, which uploads wire
+v6 delta12 records with nibble sequence codes, or with f32 log-bias rows
+when a bias track replaces the PWM. The legacy non-exact selection is not
+ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from nucleoatac_tpu.config import RunConfig
+from nucleoatac_tpu.core.chunk import Chunk, ChunkList
 from nucleoatac_tpu.core.pwm import PWM
 from nucleoatac_tpu.io.bam import BamFragments
 from nucleoatac_tpu.io.fasta import FastaFile
+from nucleoatac_tpu.io.tabix import TabixReader, TabixWriter
+from nucleoatac_tpu.models.data import (
+    ChunkAssembler,
+    make_delta12_batches,
+    pack_nibble_codes,
+    tile_chunks,
+)
+from nucleoatac_torch.device import to_device
+from nucleoatac_torch.models.occ import _pipelined, check_transfer
 
 
 @dataclass
@@ -85,6 +97,24 @@ def chunk_seq_codes(
     return out
 
 
+class BiasTrackSource:
+    """Precomputed per-bp log-bias input: the tabixed bedgraph `pyatac
+    bias` writes, read instead of scoring FASTA+PWM. Positions absent from
+    the track get log-bias 0 (uniform)."""
+
+    def __init__(self, path: str):
+        self.reader = TabixReader(path)
+
+    def log_bias(self, chrom: str, lo: int, hi: int) -> np.ndarray:
+        out = np.zeros(hi - lo, dtype=np.float64)
+        if hi <= 0:
+            return out
+        for f in self.reader.fetch(chrom, max(0, lo), hi):
+            s, e, v = int(f[1]), int(f[2]), float(f[3])
+            out[max(s, lo) - lo : max(0, min(e, hi) - lo)] = v
+        return out
+
+
 def chunk_log_bias(
     fasta: Optional[FastaFile], pwm: PWM, chrom: str, lo: int, hi: int
 ) -> np.ndarray:
@@ -145,6 +175,18 @@ class SeqCodesProvider:
         self.cache.pop(cid, None)
 
 
+def open_writers(prefix: Optional[str]) -> Dict[str, TabixWriter]:
+    """The nuc stage's bgzip+tabix writers ({} without a prefix)."""
+    if not prefix:
+        return {}
+    return {
+        "norm": TabixWriter(f"{prefix}.nucleoatac_signal.bedgraph.gz"),
+        "smooth": TabixWriter(f"{prefix}.nucleoatac_signal.smooth.bedgraph.gz"),
+        "pos": TabixWriter(f"{prefix}.nucpos.bed.gz"),
+        "red": TabixWriter(f"{prefix}.nucpos.redundant.bed.gz"),
+    }
+
+
 def host_smooth(normm: np.ndarray, margin: int, gk: np.ndarray):
     """[B, core+2*margin] norm rows -> {'norm': [B, core], 'norm_smooth':
     [B, core]} with the smoothed track recomputed on host.
@@ -162,7 +204,8 @@ def host_smooth(normm: np.ndarray, margin: int, gk: np.ndarray):
 
 
 class NucStage:
-    """Per-chunk nuc finishing for the fused run (exact mode only)."""
+    """The `nuc` stage (run) and the per-chunk nuc finishing it shares
+    with the fused run (exact mode only)."""
 
     def __init__(
         self,
@@ -170,6 +213,7 @@ class NucStage:
         engine,
         pwm: Optional[PWM] = None,
         fasta: Optional[FastaFile] = None,
+        bias_source: Optional[BiasTrackSource] = None,
     ):
         if not cfg.nuc.exact:
             raise NotImplementedError(
@@ -180,9 +224,16 @@ class NucStage:
         self.engine = engine
         self.pwm = pwm or PWM.default()
         self.fasta = fasta
-        self.bias_fn = lambda chrom, lo, hi: chunk_log_bias(
-            self.fasta, self.pwm, chrom, lo, hi
-        )
+        self.bias_source = bias_source
+        if bias_source is not None:
+            self.bias_fn = bias_source.log_bias
+        else:
+            self.bias_fn = lambda chrom, lo, hi: chunk_log_bias(
+                self.fasta, self.pwm, chrom, lo, hi
+            )
+        # largest u16 norm step of the run (decoded signal of two runs can
+        # differ by one step: each rounds to its own u16 level)
+        self.max_qstep = 0.0
         from nucleoatac_torch.models.nuc_exact import NucRefinisher
 
         self.refinisher = NucRefinisher(
@@ -204,6 +255,96 @@ class NucStage:
         cur = self._qstep_by_cid.get(cid, 0.0)
         if qstep > cur:
             self._qstep_by_cid[cid] = qstep
+        self.max_qstep = max(self.max_qstep, qstep)
+
+    def run(
+        self,
+        frags: BamFragments,
+        chunks: ChunkList,
+        occ_lookup: Callable[[int, Chunk, int], Tuple[float, float, float]],
+        out_prefix: Optional[str] = None,
+        keep_tracks: bool = False,
+    ) -> NucStageResult:
+        """occ_lookup(chunk_id, chunk, genomic_pos) -> (occ, lower, upper)."""
+        cfg = self.cfg
+        eng = self.engine
+        check_transfer(cfg)
+        res = NucStageResult()
+        writers = open_writers(out_prefix)
+        tiles = tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)
+        # exact mode downloads the norm only; the per-dyad stats are
+        # refinished in float64 on the host (models/nuc_exact.py)
+        names = ["norm", "norm_smooth"]
+        asm = ChunkAssembler(chunks, names)
+        asm.expect(tiles)
+        halo = eng.halo
+        self.prepare(frags, tiles)
+
+        # per-chunk bias caches (chunk extended by halo on both sides)
+        bias_cache: Dict[int, np.ndarray] = {}
+
+        def batch_log_bias(batch):
+            logb = np.zeros((cfg.window.batch, eng.width), dtype=np.float32)
+            for r, t in enumerate(batch.meta):
+                cid = t.chunk_id
+                chunk = chunks[cid]
+                if cid not in bias_cache:
+                    # span covers EVERY window of the chunk fully (like the
+                    # seq-codes path) so last-tile windows see real bias
+                    # instead of zero-padding
+                    bias_cache[cid] = self.bias_fn(
+                        chunk.chrom, chunk.start - halo,
+                        chunk.end + halo + eng.width,
+                    )
+                a = t.win_start - (chunk.start - halo)
+                seg = bias_cache[cid][a : a + eng.width]
+                logb[r, : len(seg)] = seg
+            return logb
+
+        seq_provider = SeqCodesProvider(self.fasta, chunks, eng, cfg.window.batch)
+        dev = eng.device
+        # a precomputed bias track forces the log-bias upload (the on-device
+        # PWM would recompute bias from sequence)
+        if eng.pwm is not None and self.bias_source is None:
+            def dispatch(batch):
+                nib = pack_nibble_codes(seq_provider.rows(batch.meta))
+                return eng.nuc_step_delta12_seq_m16(
+                    to_device(batch.buf, dev), to_device(nib, dev)
+                )
+        else:
+            def dispatch(batch):
+                return eng.nuc_step_delta12_m16(
+                    to_device(batch.buf, dev), to_device(batch_log_bias(batch), dev)
+                )
+
+        batches = make_delta12_batches(frags, tiles, eng.width, cfg.window.batch)
+        # wire v5: u16 norm with smooth margins; the smoothed track is
+        # recomputed on the host, and the per-window quantization step
+        # widens the tie guard's margin threshold
+        for batch, out in _pipelined(batches, dispatch):
+            normm, qsteps = eng.f32_from_u16(out)
+            arrs = host_smooth(
+                normm.astype(np.float64), eng.smooth_margin(), self.refinisher.gk
+            )
+            for r, t in enumerate(batch.meta):
+                self.note_qstep(t.chunk_id, float(qsteps[r]))
+                vals = {n: arrs[n][r] for n in names}
+                # core-only columns: column 0 == t.core_start
+                for cid, chunk, tracks in asm.add(t, vals, 0):
+                    bias_cache.pop(cid, None)  # all tiles dispatched; free it
+                    seq_provider.pop(cid)
+                    self._finish_chunk(cid, chunk, tracks, occ_lookup, writers, res)
+                    if keep_tracks:
+                        res.tracks[cid] = tracks
+        for w in writers.values():
+            w.close()
+        return res
+
+    def _finish_chunk(self, cid, chunk, tracks, occ_lookup, writers, res) -> None:
+        computed = self.compute_chunk(
+            cid, chunk, tracks, occ_lookup, want_payloads=bool(writers)
+        )
+        self.emit_chunk(chunk, computed, writers, res)
 
     def compute_chunk(self, cid, chunk, tracks, occ_lookup, want_payloads):
         """Thread-safe compute phase of chunk finishing: f64-certified

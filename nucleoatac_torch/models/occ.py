@@ -1,9 +1,11 @@
-"""Occupancy stage pieces used by the fused run: mixture fit, f64-exact
-finishing, occ peaks, and the pipelined batch loop.
+"""`nucleoatac occ` stage: mixture fit, per-bp occupancy + CI tracks with
+f64-exact finishing, occ peaks, and the pipelined batch loop.
 
 Counterpart of nucleoatac_tpu/models/occ.py. The host logic is the
 reference's; the device loop (_pipelined) is rewritten for CUDA streams.
-The standalone ``OccStage.run`` driver is not ported yet.
+``OccStage.run`` (the standalone and two-pass occ stage) uploads wire v6
+delta12 records and downloads wire v8 occ bytes; it runs exact mode only
+(occ.exact=False, the reference's wire v2, is not ported).
 """
 from __future__ import annotations
 
@@ -19,7 +21,14 @@ from nucleoatac_tpu.core.chunk import Chunk, ChunkList
 from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
 from nucleoatac_tpu.core.mixture import FragmentMixDistribution
 from nucleoatac_tpu.io.bam import BamFragments
+from nucleoatac_tpu.io.tabix import TabixWriter
+from nucleoatac_tpu.models.data import (
+    ChunkAssembler,
+    make_delta12_batches,
+    tile_chunks,
+)
 from nucleoatac_tpu.utils.numerics import greedy_select_fast, local_max_candidates_fast
+from nucleoatac_torch.device import to_device
 
 
 @dataclass
@@ -113,9 +122,33 @@ def _pipelined(batches, dispatch, depth: int = 3):
         yield finish(q.popleft())
 
 
+def open_writers(prefix: Optional[str]) -> Dict[str, TabixWriter]:
+    """The occ stage's bgzip+tabix writers ({} without a prefix)."""
+    if not prefix:
+        return {}
+    return {
+        "occ": TabixWriter(f"{prefix}.occ.bedgraph.gz"),
+        "lower": TabixWriter(f"{prefix}.occ.lower_bound.bedgraph.gz"),
+        "upper": TabixWriter(f"{prefix}.occ.upper_bound.bedgraph.gz"),
+        "peaks": TabixWriter(f"{prefix}.occpeaks.bed.gz"),
+    }
+
+
+def check_transfer(cfg: RunConfig) -> None:
+    """Raise unless the configured wire is ported. The standalone occ/nuc
+    stages upload per-window delta12 records under either value: the pool
+    wire is a fused-pass format, and the device programs after the raster
+    are the same."""
+    if cfg.window.transfer not in ("pool", "delta12"):
+        raise NotImplementedError(
+            f"transfer={cfg.window.transfer!r} is not ported (ROADMAP.md); "
+            "nucleoatac_torch takes 'pool' or 'delta12'"
+        )
+
+
 class OccStage:
-    """Per-chunk occ finishing (f64 refinish, spot check, peaks, payloads)
-    for the fused run."""
+    """The `occ` stage (run) and the per-chunk occ finishing (f64
+    refinish, spot check, peaks, payloads) it shares with the fused run."""
 
     def __init__(self, cfg: RunConfig, engine):
         self.cfg = cfg
@@ -140,6 +173,60 @@ class OccStage:
             # only spot-checks an extra chunk.
             self._spot_chunks = 8
             self.n_spot_checked = 0
+
+    def run(
+        self,
+        frags: BamFragments,
+        chunks: ChunkList,
+        mix: FragmentMixDistribution,
+        fragmentsizes: FragmentSizes,
+        out_prefix: Optional[str] = None,
+        keep_tracks: bool = True,
+    ) -> OccStageResult:
+        cfg = self.cfg
+        eng = self.engine
+        if not cfg.occ.exact:
+            raise NotImplementedError(
+                "occ.exact=False (wire v2, occupancy_packed3) is not ported "
+                "(ROADMAP.md Queue 1)"
+            )
+        check_transfer(cfg)
+        result = OccStageResult(mix=mix, fragmentsizes=fragmentsizes, chunks=chunks)
+        writers = open_writers(out_prefix)
+        tiles = tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)
+        self.prepare_exact(mix)
+        asm = ChunkAssembler(chunks, self.track_names())
+        asm.expect(tiles)
+
+        # wire v8: argmax + certified bit, CI bounds as 5-bit deltas whose
+        # overflow clears the certified bit and routes the position through
+        # the f64 refinisher
+        def dispatch(batch):
+            return eng.occ_step_delta12_p2(to_device(batch.buf, eng.device))
+
+        batches = make_delta12_batches(frags, tiles, eng.width, cfg.window.batch)
+        # occupancy values live on the discrete alpha grid; the wire carries
+        # grid INDICES, decoded here with the f64 grid — lossless
+        grid64 = mix.alpha_grid(cfg.occ)
+        for batch, out in _pipelined(batches, dispatch):
+            idx, cert_b = eng.decode_occ2(out)
+            cert = cert_b.astype(np.float64)
+            occ_b = grid64[idx[:, 0]]
+            lo_b = grid64[idx[:, 1]]
+            up_b = grid64[idx[:, 2]]
+            for r, t in enumerate(batch.meta):
+                # arrays are core-only: column 0 == t.core_start
+                vals = {"occ": occ_b[r], "lower": lo_b[r], "upper": up_b[r],
+                        "cert": cert[r]}
+                for cid, chunk, tracks in asm.add(t, vals, 0):
+                    self._exact_refinish(chunk, tracks, frags)
+                    result.peaks.extend(self._finish_chunk(chunk, tracks, writers))
+                    if keep_tracks:
+                        result.tracks[cid] = tracks
+
+        for w in writers.values():
+            w.close()
+        return result
 
     def _exact_refinish(self, chunk: Chunk, tracks, frags: BamFragments) -> None:
         """Re-finish uncertified positions in float64 (DESIGN.md §4).
@@ -234,6 +321,13 @@ class OccStage:
                     "the tolerance on this device and raise exact_tol."
                 )
         self.n_spot_checked += len(sample)
+
+    def _finish_chunk(self, chunk: Chunk, tracks, writers) -> List[OccPeak]:
+        peaks, payloads = self.compute_chunk(
+            chunk, tracks, want_payloads=bool(writers)
+        )
+        self.emit_chunk(chunk, peaks, payloads, writers)
+        return peaks
 
     def compute_chunk(self, chunk: Chunk, tracks, want_payloads):
         """Thread-safe compute phase: peak calling + pre-formatted track

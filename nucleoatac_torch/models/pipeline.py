@@ -1,20 +1,25 @@
 """`nucleoatac run` on PyTorch: occ -> nuc -> merge -> nfr.
 
-Counterpart of nucleoatac_tpu/models/pipeline.py :: run_pipeline, fused
-branch: ingest, mixture fit, the fused occ+nuc pass on ``device``
-(models/fused.py), merge and nfr, writing every reference output file.
-The two-pass path (taken with ``bias_track``) and ``resume`` are not
-ported yet and raise.
+Counterpart of nucleoatac_tpu/models/pipeline.py :: run_pipeline:
+ingest, mixture fit, the occ and nuc stages on ``device`` — the fused pass
+(models/fused.py) when it applies, else the two-pass stages
+(``--bias_track``, ``transfer="delta12"``) — then merge and nfr, writing
+every reference output file. ``resume`` rebuilds the occ stage from its
+files and runs the nuc stage alone.
 """
 from __future__ import annotations
 
+import gzip
+import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from nucleoatac_tpu.config import RunConfig
-from nucleoatac_tpu.core.chunk import ChunkList
+from nucleoatac_tpu.core.chunk import Chunk, ChunkList
+from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
+from nucleoatac_tpu.core.mixture import FragmentMixDistribution
 from nucleoatac_tpu.core.pwm import PWM
 from nucleoatac_tpu.core.vmat import VMat
 from nucleoatac_tpu.io.bam import scan_bam
@@ -23,8 +28,19 @@ from nucleoatac_torch.models.engine import TorchEngine
 from nucleoatac_torch.models.fused import fused_supported, run_fused
 from nucleoatac_torch.models.merge import merge_maps
 from nucleoatac_torch.models.nfr import call_nfrs
-from nucleoatac_torch.models.nuc import NucStage, NucStageResult
-from nucleoatac_torch.models.occ import OccStage, OccStageResult, fit_mixture
+from nucleoatac_torch.models.nuc import BiasTrackSource, NucStage, NucStageResult
+from nucleoatac_torch.models.occ import (
+    OccPeak,
+    OccStage,
+    OccStageResult,
+    fit_mixture,
+)
+from nucleoatac_torch.models.standalone import (
+    OccTrackReader,
+    SequentialOccTracks,
+    _LazyOccTracks,
+    warn_synthetic_defaults,
+)
 
 
 @dataclass
@@ -34,7 +50,55 @@ class RunResult:
     combined: list
     nfrs: list
     engine: TorchEngine
-    occ_stage: OccStage
+    occ_stage: Optional[OccStage]  # None when the occ stage was resumed
+    nuc_stage: NucStage
+
+
+def _occ_outputs_exist(prefix: str) -> bool:
+    return all(
+        os.path.exists(prefix + s)
+        for s in (
+            ".occ.bedgraph.gz", ".occ.lower_bound.bedgraph.gz",
+            ".occ.upper_bound.bedgraph.gz", ".occpeaks.bed.gz",
+            ".fragmentsizes.txt", ".occ_fit.txt",
+        )
+    )
+
+
+def _load_occ_stage(prefix: str, cfg: RunConfig, chunks: ChunkList):
+    """--resume: reconstruct the occ stage result from its file artifacts
+    (the stage files double as checkpoints)."""
+    fs = FragmentSizes.open(f"{prefix}.fragmentsizes.txt")
+    mix = FragmentMixDistribution.open(f"{prefix}.occ_fit.txt")
+    reader = OccTrackReader(prefix)
+    res = OccStageResult(mix=mix, fragmentsizes=fs, chunks=chunks)
+    for cid, chunk in enumerate(chunks):
+        res.tracks[cid] = reader.chunk_tracks(chunk)
+    flank = cfg.occ.flank
+    with gzip.open(f"{prefix}.occpeaks.bed.gz", "rt") as fh:
+        for line in fh:
+            f = line.split("\t")
+            if len(f) >= 6:
+                res.peaks.append(
+                    OccPeak(f[0], int(f[1]) + flank, float(f[3]), float(f[4]),
+                            float(f[5]))
+                )
+    return fs, mix, res
+
+
+def occ_lookup_from_tracks(occ_result: OccStageResult):
+    """occ stat accessor for dyad calls, backed by in-memory chunk tracks."""
+
+    def lookup(cid: int, chunk: Chunk, pos: int) -> Tuple[float, float, float]:
+        tr = occ_result.tracks.get(cid)
+        if tr is None:
+            return 0.0, 0.0, 1.0
+        i = pos - chunk.start
+        if i < 0 or i >= len(tr["occ"]):
+            return 0.0, 0.0, 1.0
+        return float(tr["occ"][i]), float(tr["lower"][i]), float(tr["upper"][i])
+
+    return lookup
 
 
 def run_pipeline(
@@ -51,21 +115,10 @@ def run_pipeline(
     device: str = "cuda",
 ) -> RunResult:
     """Run the whole pipeline on ``device`` ("cuda" raises when no card is
-    available; "cpu" runs the plain versions of the kernels)."""
-    from nucleoatac_torch.models.standalone import (
-        OccTrackReader,
-        SequentialOccTracks,
-        _LazyOccTracks,
-        warn_synthetic_defaults,
-    )
+    available; "cpu" runs the plain versions of the kernels). The xcorr
+    route is ``cfg.window.conv``."""
     from nucleoatac_tpu.utils.logging import log, stage_timer
 
-    if resume:
-        raise NotImplementedError("--resume is not ported yet (ROADMAP.md Queue 1)")
-    if bias_track:
-        raise NotImplementedError(
-            "--bias_track (the two-pass path) is not ported yet (ROADMAP.md Queue 1)"
-        )
     cfg = cfg or RunConfig()
     warn_synthetic_defaults(pwm_path, vmat_path, bias_track, needs_vmat=True)
     with stage_timer("ingest"):
@@ -75,39 +128,68 @@ def run_pipeline(
     fasta = FastaFile(fasta_path) if fasta_path else None
     pwm = PWM.open(pwm_path) if pwm_path else PWM.default()
     vmat = VMat.open(vmat_path) if vmat_path else VMat.default(cfg.vmat)
+    bias_source = BiasTrackSource(bias_track) if bias_track else None
     chunks = ChunkList.read(bed, frags.chrom_dict).merge()
     log.info("peaks: %d chunks, %d bp", len(chunks), chunks.total_bp())
 
-    with stage_timer("fit"):
-        fs, mix = fit_mixture(frags, chunks, cfg)
-        fs.save(f"{out_prefix}.fragmentsizes.txt")
-        mix.save(f"{out_prefix}.occ_fit.txt")
-        if write_plots:
-            from nucleoatac_tpu.utils import plotting
+    def make_engine(mix, fs):
+        # a bias track replaces the on-device PWM (the nuc stage uploads
+        # f32 log-bias rows), which also rules out the fused pass
+        return TorchEngine(
+            cfg, mix, fs, vmat, pwm=None if bias_source else pwm,
+            device=device, conv=cfg.window.conv,
+        )
 
-            plotting.plot_occ_fit(mix, f"{out_prefix}.occ_fit.eps")
-        engine = TorchEngine(cfg, mix, fs, vmat, pwm=pwm, device=device)
-    occ_stage = OccStage(cfg, engine)
-    nuc_stage = NucStage(cfg, engine, pwm, fasta)
-    if not fused_supported(cfg, engine):
-        raise NotImplementedError(
-            "only the fused pass (transfer='pool', exact occ and nuc) is "
-            "ported; this configuration needs the two-pass occ/nuc path or "
-            "another transfer, not ported yet (ROADMAP.md Queue 1)"
-        )
-    with stage_timer("occ+nuc (fused pass)"):
-        occ_res, nuc_res = run_fused(
-            cfg, engine, occ_stage, nuc_stage, frags, chunks, mix, fs,
-            out_prefix, keep_tracks=False,
-        )
-        log.info(
-            "occ: %d occ peaks; nuc: %d dyads (%d redundant)",
-            len(occ_res.peaks), len(nuc_res.calls), len(nuc_res.redundant),
-        )
-        # occ tracks were evicted as nuc consumed them (host memory stays
-        # O(batch)); downstream consumers stream them back per chunk from
-        # the indexed bedgraphs just written — the printed surface the
-        # reference's nfr stage also reads
+    occ_stage = None
+    if resume and _occ_outputs_exist(out_prefix):
+        with stage_timer("occ (resumed from files)"):
+            fs, mix, occ_res = _load_occ_stage(out_prefix, cfg, chunks)
+            engine = make_engine(mix, fs)
+        with stage_timer("nuc"):
+            nuc_stage = NucStage(cfg, engine, pwm, fasta, bias_source=bias_source)
+            nuc_res = nuc_stage.run(
+                frags, chunks, occ_lookup_from_tracks(occ_res), out_prefix
+            )
+            log.info("nuc: %d dyads (%d redundant)",
+                     len(nuc_res.calls), len(nuc_res.redundant))
+    else:
+        with stage_timer("fit"):
+            fs, mix = fit_mixture(frags, chunks, cfg)
+            fs.save(f"{out_prefix}.fragmentsizes.txt")
+            mix.save(f"{out_prefix}.occ_fit.txt")
+            if write_plots:
+                from nucleoatac_tpu.utils import plotting
+
+                plotting.plot_occ_fit(mix, f"{out_prefix}.occ_fit.eps")
+            engine = make_engine(mix, fs)
+        occ_stage = OccStage(cfg, engine)
+        nuc_stage = NucStage(cfg, engine, pwm, fasta, bias_source=bias_source)
+        if fused_supported(cfg, engine):
+            with stage_timer("occ+nuc (fused pass)"):
+                occ_res, nuc_res = run_fused(
+                    cfg, engine, occ_stage, nuc_stage, frags, chunks, mix, fs,
+                    out_prefix, keep_tracks=False,
+                )
+                log.info(
+                    "occ: %d occ peaks; nuc: %d dyads (%d redundant)",
+                    len(occ_res.peaks), len(nuc_res.calls),
+                    len(nuc_res.redundant),
+                )
+        else:
+            with stage_timer("occ"):
+                occ_res = occ_stage.run(
+                    frags, chunks, mix, fs, out_prefix, keep_tracks=True
+                )
+                log.info("occ: %d occ peaks", len(occ_res.peaks))
+            with stage_timer("nuc"):
+                nuc_res = nuc_stage.run(
+                    frags, chunks, occ_lookup_from_tracks(occ_res), out_prefix
+                )
+                log.info("nuc: %d dyads (%d redundant)",
+                         len(nuc_res.calls), len(nuc_res.redundant))
+        # both paths hand downstream consumers the SAME occ surface: the
+        # bedgraphs just written (the fused pass evicted its tracks as nuc
+        # consumed them; the reference's nfr stage also reads the files)
         occ_res.tracks = _LazyOccTracks(OccTrackReader(out_prefix), chunks)
     np.savetxt(
         f"{out_prefix}.nuc_dist.txt", nuc_res.nuc_dist[None], fmt="%d",
@@ -128,6 +210,7 @@ def run_pipeline(
         nfrs = call_nfrs(
             cfg, chunks, combined, SequentialOccTracks(out_prefix, chunks),
             frags, pwm, fasta, f"{out_prefix}.nfrpos.bed.gz",
+            bias_fn=bias_source.log_bias if bias_source else None,
         )
         log.info("nfr: %d NFRs; combined map: %d", len(nfrs), len(combined))
-    return RunResult(occ_res, nuc_res, combined, nfrs, engine, occ_stage)
+    return RunResult(occ_res, nuc_res, combined, nfrs, engine, occ_stage, nuc_stage)

@@ -1,17 +1,32 @@
-"""Run-path parts of the standalone stage drivers: occ track readers and
-the synthetic-default warning.
+"""Standalone per-stage commands with file-on-disk handoff, and the occ
+track readers the run path shares with them.
 
-Counterpart of nucleoatac_tpu/models/standalone.py (host logic as it is).
-The standalone occ/nuc/merge/nfr drivers are not ported yet.
+Counterpart of nucleoatac_tpu/models/standalone.py (host logic as it is):
+`occ` writes tracks, `nuc` re-reads them, `merge`/`nfr` consume the BED
+outputs. Each run_* function takes the parsed ``nucleoatac-torch`` arguments;
+``args.device`` names the torch device of the occ and nuc stages.
 """
 from __future__ import annotations
 
+import gzip
 from typing import Dict, Tuple
 
 import numpy as np
 
+from nucleoatac_tpu.config import RunConfig
 from nucleoatac_tpu.core.chunk import Chunk, ChunkList
+from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
+from nucleoatac_tpu.core.mixture import FragmentMixDistribution
+from nucleoatac_tpu.core.pwm import PWM
+from nucleoatac_tpu.core.vmat import VMat
+from nucleoatac_tpu.io.bam import scan_bam
+from nucleoatac_tpu.io.fasta import FastaFile
 from nucleoatac_tpu.io.tabix import TabixReader
+from nucleoatac_torch.models.engine import TorchEngine
+from nucleoatac_torch.models.merge import CombinedEntry, merge_maps
+from nucleoatac_torch.models.nfr import call_nfrs
+from nucleoatac_torch.models.nuc import BiasTrackSource, NucCall, NucStage
+from nucleoatac_torch.models.occ import OccPeak, OccStage, fit_mixture
 
 
 class OccTrackReader:
@@ -76,6 +91,99 @@ def warn_synthetic_defaults(
             "docs/calibration.md"
         )
 
+
+def _load_inputs(args, cfg: RunConfig):
+    frags = scan_bam(args.bam, cfg.ingest)
+    chunks = ChunkList.read(args.bed, frags.chrom_dict).merge()
+    fasta = FastaFile(args.fasta) if args.fasta else None
+    pwm = PWM.open(args.pwm) if args.pwm else PWM.default()
+    return frags, chunks, fasta, pwm
+
+
+def run_occ(args) -> None:
+    from nucleoatac_torch.cli.nucleoatac import build_config
+
+    cfg = build_config(args)
+    frags, chunks, _, _ = _load_inputs(args, cfg)
+    fs, mix = fit_mixture(frags, chunks, cfg)
+    fs.save(f"{args.out}.fragmentsizes.txt")
+    mix.save(f"{args.out}.occ_fit.txt")
+    if not args.no_plots:
+        from nucleoatac_tpu.utils import plotting
+
+        plotting.plot_occ_fit(mix, f"{args.out}.occ_fit.eps")
+    engine = TorchEngine(cfg, mix, fs, device=args.device, conv=cfg.window.conv)
+    OccStage(cfg, engine).run(frags, chunks, mix, fs, args.out, keep_tracks=False)
+
+
+def run_nuc(args) -> None:
+    from nucleoatac_torch.cli.nucleoatac import build_config
+
+    cfg = build_config(args)
+    frags, chunks, fasta, pwm = _load_inputs(args, cfg)
+    bias_track = getattr(args, "bias_track", None)
+    warn_synthetic_defaults(args.pwm, args.vmat, bias_track, needs_vmat=True)
+    prefix = args.occ_track_prefix or args.out
+    sizes_path = args.sizes or f"{prefix}.fragmentsizes.txt"
+    fs = FragmentSizes.open(sizes_path)
+    mix = FragmentMixDistribution.open(f"{prefix}.occ_fit.txt")
+    vmat = VMat.open(args.vmat) if args.vmat else VMat.default(cfg.vmat)
+    bias_source = BiasTrackSource(bias_track) if bias_track else None
+    engine = TorchEngine(
+        cfg, mix, fs, vmat, pwm=None if bias_source else pwm,
+        device=args.device, conv=cfg.window.conv,
+    )
+    occ_reader = OccTrackReader(prefix)
+    res = NucStage(cfg, engine, pwm, fasta, bias_source=bias_source).run(
+        frags, chunks, occ_reader.lookup, args.out
+    )
+    np.savetxt(f"{args.out}.nuc_dist.txt", res.nuc_dist[None], fmt="%d", delimiter="\t")
+    if not args.no_plots:
+        from nucleoatac_tpu.utils import plotting
+
+        plotting.plot_nuc_dist(res.nuc_dist, f"{args.out}.nuc_dist.eps")
+
+
+def _read_bed_gz(path: str):
+    with gzip.open(path, "rt") as fh:
+        for line in fh:
+            line = line.strip()
+            if line and not line.startswith("#"):
+                yield line.split("\t")
+
+
+def run_merge(args) -> None:
+    nuc_calls = [
+        NucCall(f[0], int(f[1]), float(f[3]), float(f[4]), float(f[5]),
+                float(f[6]), float(f[7]), float(f[8]), float(f[9]), float(f[10]))
+        for f in _read_bed_gz(args.nucpos)
+    ]
+    occ_peaks = [
+        OccPeak(f[0], (int(f[1]) + int(f[2])) // 2, float(f[3]), float(f[4]), float(f[5]))
+        for f in _read_bed_gz(args.occpeaks)
+    ]
+    merge_maps(nuc_calls, occ_peaks, args.sep, f"{args.out}.nucmap_combined.bed.gz")
+
+
+def run_nfr(args) -> None:
+    from nucleoatac_torch.cli.nucleoatac import build_config
+
+    cfg = build_config(args)
+    frags, chunks, fasta, pwm = _load_inputs(args, cfg)
+    bias_track = getattr(args, "bias_track", None)
+    warn_synthetic_defaults(args.pwm, None, bias_track)
+    prefix = args.occ_track_prefix or args.out
+    calls_path = args.calls or f"{args.out}.nucmap_combined.bed.gz"
+    combined = [
+        CombinedEntry(f[0], int(f[1]), float(f[3]), f[4] if len(f) > 4 else "nuc")
+        for f in _read_bed_gz(calls_path)
+    ]
+    occ_reader = OccTrackReader(prefix)
+    bias_fn = BiasTrackSource(bias_track).log_bias if bias_track else None
+    call_nfrs(
+        cfg, chunks, combined, _LazyOccTracks(occ_reader, chunks), frags,
+        pwm, fasta, f"{args.out}.nfrpos.bed.gz", bias_fn=bias_fn,
+    )
 
 
 class _BedgraphBlockStream:

@@ -1,14 +1,43 @@
 """V-plot rasterization: fragment records -> [B, S, W] count matrices.
 
-Counterpart of nucleoatac_tpu/ops/rasterize.py for the main path's wire
-v7 pool format. One flattened scatter-add over [B*S*W] builds all window
-matrices at once; on the card ``index_add_`` accumulates with float32
-atomics, which are exact for counts below 2^24, so the counts equal the
-reference's bit for bit.
+Counterpart of nucleoatac_tpu/ops/rasterize.py for the fused pass's wire
+v7 pool format and the standalone stages' wire v6 per-window records. One
+flattened scatter-add over [B*S*W] builds all window matrices at once; on
+the card ``index_add_`` accumulates with float32 atomics, which are exact
+for counts below 2^24, so the counts equal the reference's bit for bit.
 """
 from __future__ import annotations
 
 import torch
+
+
+def _midpoints(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Running midpoint offsets of 12-bit records: a fragment (size > 0)
+    advances by its nibble d, a skip record (size 0) by d*15."""
+    return torch.cumsum(torch.where(s == 0, d * 15, d), dim=1)
+
+
+def unpack_delta12_fragments(buf: torch.Tensor, n_entries: int):
+    """Per-window 12-bit/record upload (wire v6).
+
+    buf: uint8 [B, ceil(E/2) + E] — a nibble-packed delta plane (2 records
+    per byte, low nibble first) then the size-byte plane, with the record
+    semantics of the pool (zero padding advances 0). Returns (mids, sizes,
+    valid) [B, E]."""
+    E = n_entries
+    nib_bytes = (E + 1) // 2
+    nib = buf[:, :nib_bytes].long()
+    d = torch.stack([nib & 0xF, nib >> 4], dim=-1).reshape(buf.shape[0], -1)[:, :E]
+    s = buf[:, nib_bytes : nib_bytes + E].long()
+    return _midpoints(d, s), s, s > 0
+
+
+def rasterize_delta12_batch(
+    buf: torch.Tensor, n_entries: int, lower: int, upper: int, width: int
+) -> torch.Tensor:
+    """Wire-v6 records -> [B, upper-lower, width] f32 counts."""
+    mids, sizes, valid = unpack_delta12_fragments(buf, n_entries)
+    return rasterize_batch(mids, sizes, valid, lower, upper, width)
 
 
 def unpack_pool_fragments(pool: torch.Tensor, table: torch.Tensor, emax: int):
@@ -34,9 +63,7 @@ def unpack_pool_fragments(pool: torch.Tensor, table: torch.Tensor, emax: int):
     in_cnt = ar < table[:, 1:2]
     d = torch.where(in_cnt, d, 0)
     s = torch.where(in_cnt, s, 0)
-    adv = torch.where(s == 0, d * 15, d)
-    mids = table[:, 2:3] + torch.cumsum(adv, dim=1)
-    return mids, s, s > 0
+    return table[:, 2:3] + _midpoints(d, s), s, s > 0
 
 
 def rasterize_batch(

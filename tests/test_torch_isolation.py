@@ -1,6 +1,7 @@
 """nucleoatac_torch runs in a process where `import jax` fails: every
-module imports, and run_pipeline(device='cpu') completes on the synthetic
-example."""
+module imports, run_pipeline(device='cpu') completes on the synthetic
+example, and so do the two command lines (with matplotlib blocked too, as
+on a machine without it, under --no_plots)."""
 import os
 import subprocess
 import sys
@@ -34,6 +35,10 @@ PORT_MODULES = [
     "nucleoatac_torch.models.nfr",
     "nucleoatac_torch.models.standalone",
     "nucleoatac_torch.models.pipeline",
+    "nucleoatac_torch.pyatac",
+    "nucleoatac_torch.cli",
+    "nucleoatac_torch.cli.nucleoatac",
+    "nucleoatac_torch.cli.pyatac",
 ]
 
 
@@ -83,3 +88,26 @@ def test_run_pipeline_cpu_without_jax(tmp_path):
     )
     assert "calls 4" in out
     assert (tmp_path / "out.nfrpos.bed.gz").exists()
+
+
+def test_command_lines_cpu_without_jax_or_matplotlib(tmp_path):
+    out = _run_without_jax(
+        """
+        import pathlib
+        sys.modules['matplotlib'] = None
+        from synth import make_example
+        from nucleoatac_torch.cli.nucleoatac import main as nucleoatac
+        from nucleoatac_torch.cli.pyatac import main as pyatac
+        ex = make_example(pathlib.Path('.'))
+        rc = nucleoatac(['occ', '--bed', ex['bed'], '--bam', ex['bam'],
+                         '--out', 'st', '--batch', '4', '--device', 'cpu',
+                         '--no_plots'])
+        rc2 = pyatac(['sizes', '--bam', ex['bam'], '--out', 'sz', '--no_plots'])
+        assert sys.modules['jax'] is None and sys.modules['matplotlib'] is None
+        print('rc', rc, rc2)
+        """,
+        tmp_path,
+    )
+    assert "rc 0 0" in out
+    assert (tmp_path / "st.occ.bedgraph.gz").exists()
+    assert (tmp_path / "sz.fragmentsizes.txt").exists()

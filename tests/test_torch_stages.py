@@ -1,0 +1,311 @@
+"""The port's standalone stages and two-pass path against the JAX package
+(CPU backend): the delta12 wire, the engine's delta12 entry points, the
+xcorr route switch (cfg.window.conv), and whole runs — two-pass equal to
+fused row for row, and to the reference's run by parity.compare_runs."""
+import gzip
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from nucleoatac_tpu.config import RunConfig, WindowParams
+from nucleoatac_tpu.core.chunk import ChunkList
+from nucleoatac_tpu.core.pwm import PWM
+from nucleoatac_tpu.io.bam import scan_bam
+from nucleoatac_tpu.io.fasta import FastaFile
+from nucleoatac_tpu.models.data import (
+    delta12_entry_capacity,
+    encode_delta12_batch,
+    make_delta12_batches,
+    make_pool_batches,
+    pack_nibble_codes,
+    tile_chunks,
+)
+from nucleoatac_tpu.models.engine import DeviceEngine
+from nucleoatac_tpu.ops import rasterize as jras
+from nucleoatac_torch.models import engine as tengine_mod
+from nucleoatac_torch.models.engine import TorchEngine
+from nucleoatac_torch.models.nuc import SeqCodesProvider
+from nucleoatac_torch.ops import rasterize as tras
+from nucleoatac_torch.parity import (
+    EXACT_SUFFIXES,
+    NUCPOS_SUFFIXES,
+    RUN_SUFFIXES,
+    SIGNAL_SUFFIXES,
+    compare_runs,
+)
+from synth import make_example
+
+T = torch.from_numpy
+CFG = RunConfig(window=WindowParams(core=256, batch=4))
+
+
+# ---------------- wire v6: delta12 records --------------------------------
+def _delta12_buf(rng, B=3, W=768, F=300):
+    """Seeded sorted windows (one empty row, one sparse) in the reference's
+    wire-v6 encoding."""
+    counts = np.array([F, 0, 12][:B], np.int64)
+    mids = np.zeros((B, F), np.int64)
+    sizes = np.zeros((B, F), np.int64)
+    for b, n in enumerate(counts):
+        mids[b, :n] = np.sort(rng.integers(0, W, n))
+        sizes[b, :n] = rng.integers(1, 256, n)
+    E = delta12_entry_capacity(F, W)
+    buf = np.zeros((B, E // 2 + E), np.uint8)
+    encode_delta12_batch(mids, sizes, buf, counts)
+    return buf, E, W
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_delta12_unpack_and_raster_exactly_equal(seed):
+    buf, E, W = _delta12_buf(np.random.default_rng(seed))
+    want = [np.asarray(x) for x in jras.unpack_delta12_fragments(jnp.asarray(buf), E)]
+    got = [x.numpy() for x in tras.unpack_delta12_fragments(T(buf), E)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    want_r = np.asarray(jras.rasterize_delta12_batch(jnp.asarray(buf), E, 0, 251, W))
+    got_r = tras.rasterize_delta12_batch(T(buf), E, 0, 251, W).numpy()
+    assert want_r.sum() > 100
+    np.testing.assert_array_equal(got_r, want_r)
+
+
+def test_delta12_sparse_extreme_gaps():
+    """Multi-hundred-bp gaps split into skip records decode exactly."""
+    W = 1536
+    mids = np.array([[0, 16, 31, 254, 255, 256, 1535]], np.int64)
+    sizes = np.full((1, 7), 147, np.int64)
+    E = delta12_entry_capacity(7, W)
+    buf = np.zeros((1, E // 2 + E), np.uint8)
+    encode_delta12_batch(mids, sizes, buf)
+    m, s, v = (x.numpy() for x in tras.unpack_delta12_fragments(T(buf), E))
+    np.testing.assert_array_equal(m[0][v[0]], mids[0])
+    np.testing.assert_array_equal(s[0][v[0]], sizes[0])
+
+
+# ---------------- engines on real windows ---------------------------------
+def _fit(frags, chunks):
+    from nucleoatac_torch.models.occ import fit_mixture
+
+    return fit_mixture(frags, chunks, CFG)
+
+
+@pytest.fixture(scope="module")
+def example(tmp_path_factory):
+    ex = make_example(tmp_path_factory.mktemp("stages_example"))
+    frags = scan_bam(ex["bam"], CFG.ingest)
+    chunks = ChunkList.read(ex["bed"], frags.chrom_dict).merge()
+    fs, mix = _fit(frags, chunks)
+    tiles = tile_chunks(chunks, CFG.window, CFG.occ, CFG.vmat)
+    return ex, frags, chunks, fs, mix, tiles
+
+
+@pytest.fixture(scope="module")
+def engines(example):
+    _, _, _, fs, mix, _ = example
+    pwm = PWM.default()
+    return (DeviceEngine(CFG, mix, fs, pwm=pwm),
+            TorchEngine(CFG, mix, fs, pwm=pwm, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def batches(example, engines):
+    ex, frags, chunks, _, _, tiles = example
+    jeng, _ = engines
+    d12 = list(make_delta12_batches(frags, tiles, jeng.width, CFG.window.batch))
+    pools = list(make_pool_batches(frags, tiles, jeng.width, CFG.window.batch))
+    seq = SeqCodesProvider(FastaFile(ex["fasta"]), chunks, jeng, CFG.window.batch)
+    nibs = [pack_nibble_codes(seq.rows(b.meta)) for b in d12]
+    return d12, pools, nibs
+
+
+def test_delta12_raster_equals_pool_raster(engines, batches):
+    """The two wires give the same count matrices bit for bit, so the
+    two-pass and the fused path feed identical inputs to the nuc chain."""
+    _, teng = engines
+    d12, pools, _ = batches
+    assert len(d12) == len(pools) >= 2
+    for a, b in zip(d12, pools):
+        assert [t.win_start for t in a.meta] == [t.win_start for t in b.meta]
+        ra = teng._raster_delta12(T(a.buf))
+        rb = teng._raster_pool(T(b.pool), T(b.table), b.emax)
+        assert ra.sum() > 0
+        assert torch.equal(ra, rb)
+
+
+def test_occ_step_delta12_p2_matches_device_engine(engines, batches):
+    """Occ grid indices equal wherever both engines certify."""
+    jeng, teng = engines
+    for b in batches[0]:
+        jraw = np.asarray(jeng.occ_step_delta12_p2(jnp.asarray(b.buf)))
+        traw = teng.occ_step_delta12_p2(T(b.buf)).numpy()
+        assert traw.shape == jraw.shape and traw.dtype == np.uint8
+        jidx, jcert = jeng.decode_occ2(jraw)
+        tidx, tcert = teng.decode_occ2(traw)
+        both = jcert & tcert
+        assert both.mean() > 0.5
+        for c in range(3):
+            np.testing.assert_array_equal(tidx[:, c][both], jidx[:, c][both])
+
+
+def _decoded_close(jeng, teng, jbuf, tbuf):
+    """Decoded u16 norms within exact_tol plus one quantization step (each
+    side rounds its own f32 norm to its own nearest u16 level)."""
+    jn, jq = jeng.f32_from_u16(jbuf)
+    tn, tq = teng.f32_from_u16(tbuf)
+    assert tbuf.shape == jbuf.shape
+    step = np.maximum(jq, tq)[:, None]
+    assert (np.abs(tn - jn) <= jeng.cfg.nuc.exact_tol + step).all()
+    assert np.abs(jn).max() > 1.0  # non-vacuous
+
+
+def test_nuc_step_delta12_seq_m16_matches_device_engine(engines, batches):
+    jeng, teng = engines
+    d12, _, nibs = batches
+    for b, nib in zip(d12, nibs):
+        jbuf = np.asarray(jeng.nuc_step_delta12_seq_m16(jnp.asarray(b.buf), jnp.asarray(nib)))
+        tbuf = teng.nuc_step_delta12_seq_m16(T(b.buf), T(nib)).numpy()
+        _decoded_close(jeng, teng, jbuf, tbuf)
+
+
+@pytest.fixture(scope="module")
+def bias_engines(example):
+    """Engines as the --bias_track path builds them: no PWM."""
+    _, _, _, fs, mix, _ = example
+    return (DeviceEngine(CFG, mix, fs, pwm=None),
+            TorchEngine(CFG, mix, fs, pwm=None, device="cpu"))
+
+
+def test_nuc_step_delta12_m16_matches_device_engine(bias_engines, batches):
+    jeng, teng = bias_engines
+    rng = np.random.default_rng(7)
+    for b in batches[0]:
+        logb = rng.normal(0, 0.3, size=(CFG.window.batch, jeng.width)).astype(np.float32)
+        jbuf = np.asarray(jeng.nuc_step_delta12_m16(jnp.asarray(b.buf), jnp.asarray(logb)))
+        tbuf = teng.nuc_step_delta12_m16(T(b.buf), T(logb)).numpy()
+        _decoded_close(jeng, teng, jbuf, tbuf)
+
+
+def test_two_pass_and_fused_programs_give_equal_bytes(engines, batches):
+    """Per batch: the standalone occ/nuc entry points give the bytes the
+    fused run_step_pool packs (same rasters, same _nucm -> _u16)."""
+    _, teng = engines
+    d12, pools, nibs = batches
+    n_occ = 2 * teng.core + (teng.core + 3) // 4
+    for a, b, nib in zip(d12, pools, nibs):
+        fused = teng.run_step_pool(T(b.pool), T(b.table), T(nib), b.emax)
+        assert torch.equal(fused[:, :n_occ], teng.occ_step_delta12_p2(T(a.buf)))
+        assert torch.equal(fused[:, n_occ:], teng.nuc_step_delta12_seq_m16(T(a.buf), T(nib)))
+
+
+# ---------------- the xcorr route switch (cfg.window.conv) ----------------
+def test_diag_pallas_norm_matches_device_engine(example, batches):
+    """TorchEngine(conv='diag_pallas') against the reference's Pallas route
+    (interpret mode on the CPU backend): f32 norms within nuc.exact_tol."""
+    _, _, _, fs, mix, _ = example
+    pwm = PWM.default()
+    jeng = DeviceEngine(CFG, mix, fs, pwm=pwm, conv_mode="diag_pallas")
+    teng = TorchEngine(CFG, mix, fs, pwm=pwm, device="cpu", conv="diag_pallas")
+    b, nib = batches[0][0], batches[2][0]
+    jn = np.asarray(jeng._nucm(jeng._raster_delta12(jnp.asarray(b.buf)),
+                               jeng._logbias_nib(jnp.asarray(nib))))
+    tn = teng._nucm(teng._raster_delta12(T(b.buf)), teng._logbias_nib(T(nib))).numpy()
+    assert tn.shape == jn.shape and np.abs(jn).max() > 1.0
+    assert np.abs(tn - jn).max() <= CFG.nuc.exact_tol
+
+
+@pytest.mark.parametrize("conv,k1_calls,k2_calls", [
+    ("diag", 0, 1), ("diag_pallas", 1, 0),
+])
+def test_conv_route_follows_config(example, batches, monkeypatch, conv, k1_calls, k2_calls):
+    """cfg.window.conv picks the route: diag_pallas goes through K1's
+    nuc_conv_outputs (two diag_xcorr stacks), diag through K2's nuc_scores;
+    each nuc batch counts one engine step."""
+    import dataclasses
+
+    _, _, _, fs, mix, _ = example
+    cfg = dataclasses.replace(
+        CFG, window=dataclasses.replace(CFG.window, conv=conv))
+    eng = TorchEngine(cfg, mix, fs, pwm=PWM.default(), device="cpu")
+    calls = {"k1": 0, "k2": 0}
+    real_k1, real_k2 = tengine_mod.nuc_conv_outputs, tengine_mod.nuc_scores
+
+    def k1(*a):
+        calls["k1"] += 1
+        return real_k1(*a)
+
+    def k2(*a):
+        calls["k2"] += 1
+        return real_k2(*a)
+
+    monkeypatch.setattr(tengine_mod, "nuc_conv_outputs", k1)
+    monkeypatch.setattr(tengine_mod, "nuc_scores", k2)
+    d12, _, nibs = batches
+    for b, nib in zip(d12, nibs):
+        eng.nuc_step_delta12_seq_m16(T(b.buf), T(nib))
+    assert calls == {"k1": k1_calls * len(d12), "k2": k2_calls * len(d12)}
+    assert eng.steps == len(d12)
+
+
+def test_conv_direct_raises(example):
+    _, _, _, fs, mix, _ = example
+    with pytest.raises(NotImplementedError, match="direct"):
+        TorchEngine(CFG, mix, fs, device="cpu", conv="direct")
+    with pytest.raises(ValueError, match="conv"):
+        TorchEngine(CFG, mix, fs, device="cpu", conv="fft")
+
+
+# ---------------- whole runs ----------------------------------------------
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The port on the fused pool pass and on the two-pass delta12 stages,
+    and the reference's run, on the synthetic example."""
+    import dataclasses
+
+    from nucleoatac_tpu.models.pipeline import run_pipeline as run_jax
+    from nucleoatac_torch.models.pipeline import run_pipeline as run_torch
+
+    d = tmp_path_factory.mktemp("torch_two_pass")
+    ex = make_example(d)
+    two = dataclasses.replace(
+        CFG, window=dataclasses.replace(CFG.window, transfer="delta12"))
+    kw = dict(fasta_path=ex["fasta"], write_plots=False)
+    out = {k: str(d / k) for k in ("fused", "two", "jax")}
+    res = {
+        "fused": run_torch(ex["bam"], ex["bed"], out["fused"], cfg=CFG, device="cpu", **kw),
+        "two": run_torch(ex["bam"], ex["bed"], out["two"], cfg=two, device="cpu", **kw),
+    }
+    run_jax(ex["bam"], ex["bed"], out["jax"], cfg=two, **kw)
+    return out, res
+
+
+@pytest.mark.parametrize("suffix", RUN_SUFFIXES)
+def test_two_pass_equals_fused_row_for_row(runs, suffix):
+    out, _ = runs
+    with gzip.open(out["fused"] + suffix, "rt") as a, gzip.open(out["two"] + suffix, "rt") as b:
+        want = a.read()
+        assert want and b.read() == want
+
+
+def test_two_pass_ran_the_standalone_stages(runs):
+    _, res = runs
+    assert res["two"].occ_stage.n_spot_checked > 0
+    assert res["two"].engine.steps == res["fused"].engine.steps > 0
+    assert [c.bed_row() for c in res["two"].nuc.calls] == [
+        c.bed_row() for c in res["fused"].nuc.calls]
+
+
+@pytest.fixture(scope="module")
+def ref_stats(runs):
+    out, _ = runs
+    return compare_runs(out["jax"], out["two"], CFG.nuc.exact_tol)
+
+
+@pytest.mark.parametrize("suffix", EXACT_SUFFIXES + NUCPOS_SUFFIXES)
+def test_two_pass_rows_equal_reference(ref_stats, suffix):
+    assert ref_stats[suffix] > 0
+
+
+@pytest.mark.parametrize("suffix", SIGNAL_SUFFIXES)
+def test_two_pass_signal_within_exact_tol(ref_stats, suffix):
+    assert ref_stats[suffix + " max_abs_diff"] <= CFG.nuc.exact_tol
