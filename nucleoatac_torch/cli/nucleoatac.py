@@ -8,8 +8,10 @@ and flags, except:
   * ``--transfer`` takes pool or delta12, and ``--upper`` > 255 (where the
     reference falls back to the packed wire) is an error;
   * ``--fetch-threads`` is gone (a relay setting);
-  * ``--profile``, ``--num_hosts``, ``--host_id`` and ``--finalize`` parse
-    but exit nonzero: multi-host runs and profiling are not ported yet.
+  * ``--profile DIR`` writes a torch.profiler trace (TensorBoard format);
+  * ``--num_hosts``/``--host_id`` run one host's shard on its device
+    (``cuda:{LOCAL_RANK}`` under torchrun, whose environment also forms
+    the gloo process group), and ``--finalize`` merges the shards.
 Plots need matplotlib, which is imported only when plots are written.
 """
 from __future__ import annotations
@@ -29,7 +31,6 @@ from nucleoatac_tpu.config import (
 from nucleoatac_torch.models.engine import CONV_ROUTES
 
 TRANSFERS = ("pool", "delta12")
-UNPORTED_RUN_FLAGS = ("profile", "num_hosts", "host_id", "finalize")
 
 
 def _common(p: argparse.ArgumentParser, fasta_required: bool = False) -> None:
@@ -145,16 +146,20 @@ def nucleoatac_parser() -> argparse.ArgumentParser:
                     help="precomputed per-bp log-bias track (pyatac bias "
                     "output) used instead of FASTA+PWM scoring")
     pr.add_argument("--profile", default=None, metavar="DIR",
-                    help="not ported yet (ROADMAP.md)")
+                    help="write a torch.profiler trace (TensorBoard "
+                    "*.pt.trace.json) of the run to DIR")
     pr.add_argument("--num_hosts", type=int, default=None,
-                    help="not ported yet (ROADMAP.md)")
+                    help="multi-host run: total hosts (or WORLD_SIZE from "
+                    "torchrun)")
     pr.add_argument("--host_id", type=int, default=None,
-                    help="not ported yet (ROADMAP.md)")
+                    help="multi-host run: this host's index (or RANK from "
+                    "torchrun)")
     pr.add_argument("--resume", action="store_true",
                     help="reuse existing occ outputs (stage files are "
                     "checkpoints, as in the reference)")
     pr.add_argument("--finalize", action="store_true",
-                    help="not ported yet (ROADMAP.md)")
+                    help="merge per-host shards + run merge/nfr (host 0, "
+                    "after all hosts finish; automatic under torchrun)")
 
     po = sub.add_parser("occ", help="occupancy stage only")
     _common(po)
@@ -203,18 +208,24 @@ def nucleoatac_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = nucleoatac_parser().parse_args(argv)
     if args.command == "run":
-        # `is not` rather than `in (None, False)`: --host_id 0 is a value
-        unported = [
-            f"--{f}" for f in UNPORTED_RUN_FLAGS
-            if getattr(args, f) is not None and getattr(args, f) is not False
-        ]
-        if unported:
-            print(
-                f"nucleoatac-torch: {', '.join(unported)} not ported yet "
-                "(ROADMAP.md)",
-                file=sys.stderr,
+        if args.finalize:
+            from nucleoatac_torch.models.distributed_pipeline import finalize_shards
+
+            finalize_shards(
+                args.out, args.num_hosts or 1, args.bam, args.bed,
+                args.fasta, args.pwm, build_config(args),
             )
-            return 2
+            return 0
+        if args.num_hosts or args.host_id is not None:
+            from nucleoatac_torch.models.distributed_pipeline import run_distributed
+
+            run_distributed(
+                args.bam, args.bed, args.out,
+                fasta_path=args.fasta, pwm_path=args.pwm, vmat_path=args.vmat,
+                cfg=build_config(args), host_id=args.host_id,
+                num_hosts=args.num_hosts, device=args.device,
+            )
+            return 0
         from nucleoatac_torch.models.pipeline import run_pipeline
 
         run_pipeline(
@@ -222,6 +233,7 @@ def main(argv=None) -> int:
             fasta_path=args.fasta, pwm_path=args.pwm, vmat_path=args.vmat,
             cfg=build_config(args), write_plots=not args.no_plots,
             resume=args.resume, bias_track=args.bias_track, device=args.device,
+            profile_dir=args.profile,
         )
         return 0
     if args.command == "occ":

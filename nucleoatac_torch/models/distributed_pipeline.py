@@ -1,0 +1,292 @@
+"""Multi-host `nucleoatac run`: contiguous chunk shards per host + merge.
+
+Counterpart of nucleoatac_tpu/models/distributed_pipeline.py over
+TorchEngine. Each host process — or, on one machine, each GPU's process
+— takes a contiguous (genome-ordered) slice of the peak chunks, runs the
+two-pass occ and nuc stages on its own device (parallel/mesh.py ::
+local_device) writing `<out>.part<k>.*` shards, and host 0 concatenates
+the shards (re-indexing tabix) and runs the host merge and nfr stages on
+the combined outputs. Works under a torch.distributed process group
+(``torchrun``'s MASTER_ADDR et al.; parallel/distributed.py), which
+also shares the size histogram and the finishing barrier, or under any
+external launcher passing --num_hosts/--host_id, which then runs
+--finalize once every host is done.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nucleoatac_tpu.config import RunConfig
+from nucleoatac_tpu.core.chunk import ChunkList
+from nucleoatac_tpu.core.pwm import PWM
+from nucleoatac_tpu.core.vmat import VMat
+from nucleoatac_tpu.io.bam import scan_bam
+from nucleoatac_tpu.io.fasta import FastaFile
+from nucleoatac_torch.models.engine import TorchEngine
+from nucleoatac_torch.models.nuc import NucStage
+from nucleoatac_torch.models.occ import OccStage, fit_mixture
+from nucleoatac_torch.models.pipeline import occ_lookup_from_tracks
+from nucleoatac_torch.parallel.distributed import (
+    group_size,
+    host_tile_slice,
+    init_distributed,
+    merge_host_shards,
+)
+from nucleoatac_torch.parallel.mesh import local_device, sharded_size_histogram
+from nucleoatac_torch.utils.logging import log, stage_timer
+
+_SHARD_SUFFIXES = [
+    ".occ.bedgraph.gz",
+    ".occ.lower_bound.bedgraph.gz",
+    ".occ.upper_bound.bedgraph.gz",
+    ".occpeaks.bed.gz",
+    ".nucleoatac_signal.bedgraph.gz",
+    ".nucleoatac_signal.smooth.bedgraph.gz",
+    ".nucpos.bed.gz",
+    ".nucpos.redundant.bed.gz",
+]
+
+
+def _run_fingerprint(bam: str, bed: str, cfg: RunConfig) -> str:
+    """Identity of a logical run: inputs + config. Shards from a different
+    run (stale leftovers, changed flags) must never merge silently."""
+    import hashlib
+    import os
+
+    h = hashlib.sha256()
+    h.update(repr(cfg).encode())
+    for p in (bam, bed):
+        st = os.stat(p)
+        h.update(f"{p}:{st.st_size}:{st.st_mtime_ns}".encode())
+    return h.hexdigest()[:16]
+
+
+def _write_manifest(shard_prefix: str, pid: int, nhosts: int, fp: str) -> None:
+    """Written AFTER every shard file is closed — its presence certifies a
+    complete, fresh shard (VERDICT r1 item 10)."""
+    import hashlib
+    import json
+    import os
+
+    files = {}
+    for suffix in _SHARD_SUFFIXES + [".nuc_dist.txt"]:
+        p = shard_prefix + suffix
+        md5 = hashlib.md5()
+        with open(p, "rb") as fh:
+            for block in iter(lambda: fh.read(1 << 20), b""):
+                md5.update(block)
+        files[suffix] = {"size": os.path.getsize(p), "md5": md5.hexdigest()}
+    with open(shard_prefix + ".manifest.json", "w") as fh:
+        json.dump(
+            {"host_id": pid, "num_hosts": nhosts, "fingerprint": fp,
+             "files": files},
+            fh,
+        )
+
+
+def check_manifests(out_prefix: str, nhosts: int, fp: str) -> None:
+    """Refuse to merge unless every host wrote a complete, matching
+    manifest and every shard file still matches it (crashed hosts leave
+    no manifest; stale shards from another run carry the wrong
+    fingerprint; truncated/modified files fail size/md5)."""
+    import hashlib
+    import json
+    import os
+
+    for k in range(nhosts):
+        mpath = f"{out_prefix}.part{k}.manifest.json"
+        if not os.path.exists(mpath):
+            raise RuntimeError(
+                f"finalize: missing shard manifest {mpath} — host {k} did "
+                f"not complete; refusing to merge"
+            )
+        with open(mpath) as fh:
+            m = json.load(fh)
+        if m.get("num_hosts") != nhosts or m.get("host_id") != k:
+            raise RuntimeError(
+                f"finalize: manifest {mpath} is for host {m.get('host_id')}"
+                f"/{m.get('num_hosts')} hosts, expected {k}/{nhosts}"
+            )
+        if m.get("fingerprint") != fp:
+            raise RuntimeError(
+                f"finalize: manifest {mpath} fingerprint {m.get('fingerprint')}"
+                f" != this run's {fp} — stale shards from a different "
+                f"run/config; refusing to merge"
+            )
+        for suffix, want in m["files"].items():
+            p = f"{out_prefix}.part{k}{suffix}"
+            if not os.path.exists(p) or os.path.getsize(p) != want["size"]:
+                raise RuntimeError(
+                    f"finalize: shard {p} missing or size-mismatched vs "
+                    "its manifest; refusing to merge"
+                )
+            md5 = hashlib.md5()
+            with open(p, "rb") as fh:
+                for block in iter(lambda: fh.read(1 << 20), b""):
+                    md5.update(block)
+            if md5.hexdigest() != want["md5"]:
+                raise RuntimeError(
+                    f"finalize: shard {p} checksum mismatch vs its "
+                    "manifest; refusing to merge"
+                )
+
+
+def fit_mixture_distributed(frags, all_chunks, cfg, pid: int, nhosts: int):
+    """Genome-wide size histogram + mixture fit, sharded across hosts.
+
+    Under a live process group each host bins only ITS chunk shard and
+    the global histogram is the one collective of sharded_size_histogram
+    (an all_reduce of int64 counts: exact, so the fit is bit-equal to the
+    full fit). File-shard launchers without a process group fall back to
+    each host computing the identical full fit."""
+    if group_size() <= 1:
+        return fit_mixture(frags, all_chunks, cfg)
+    from nucleoatac_tpu.core.fragmentsizes import FragmentSizes
+    from nucleoatac_tpu.core.mixture import FragmentMixDistribution
+
+    local = ChunkList(host_tile_slice(all_chunks.chunks, pid, nhosts))
+    parts = [frags.window(c.chrom, c.start, c.end)[1] for c in local]
+    sizes = torch.from_numpy(np.concatenate(parts).astype(np.int64) if parts
+                             else np.zeros(0, np.int64))
+    total = sharded_size_histogram(
+        sizes, torch.ones_like(sizes, dtype=torch.bool), cfg.sizes.lower, cfg.sizes.upper
+    ).numpy()
+    fs = FragmentSizes(cfg.sizes.lower, cfg.sizes.upper, total)
+    mix = FragmentMixDistribution(
+        cfg.sizes.lower, cfg.sizes.upper, cfg.mixture
+    ).fit(fs)
+    return fs, mix
+
+
+def run_distributed(
+    bam: str,
+    bed: str,
+    out_prefix: str,
+    fasta_path: Optional[str] = None,
+    pwm_path: Optional[str] = None,
+    vmat_path: Optional[str] = None,
+    cfg: Optional[RunConfig] = None,
+    host_id: Optional[int] = None,
+    num_hosts: Optional[int] = None,
+    device: str = "cuda",
+) -> None:
+    """One host's share of `run` on ``device`` (``cuda:{LOCAL_RANK}``
+    under torchrun). Joins the process group when the launcher's
+    environment names one and leaves it before returning."""
+    import torch.distributed as dist
+
+    cfg = cfg or RunConfig()
+    owns_group = not (dist.is_available() and dist.is_initialized())
+    pid, nhosts = init_distributed()
+    if host_id is not None:
+        pid = host_id
+    if num_hosts is not None:
+        nhosts = num_hosts
+    try:
+        dev = local_device(device)
+        frags = scan_bam(bam, cfg.ingest)
+        fasta = FastaFile(fasta_path) if fasta_path else None
+        pwm = PWM.open(pwm_path) if pwm_path else PWM.default()
+        vmat = VMat.open(vmat_path) if vmat_path else VMat.default(cfg.vmat)
+        all_chunks = ChunkList.read(bed, frags.chrom_dict).merge()
+
+        fs, mix = fit_mixture_distributed(frags, all_chunks, cfg, pid, nhosts)
+        if pid == 0:
+            fs.save(f"{out_prefix}.fragmentsizes.txt")
+            mix.save(f"{out_prefix}.occ_fit.txt")
+
+        local_chunks = ChunkList(host_tile_slice(all_chunks.chunks, pid, nhosts))
+        log.info("host %d/%d on %s: %d of %d chunks", pid, nhosts, dev,
+                 len(local_chunks), len(all_chunks))
+        shard_prefix = f"{out_prefix}.part{pid}"
+        with stage_timer(f"host {pid} shard"):
+            engine = TorchEngine(cfg, mix, fs, vmat, pwm=pwm, device=dev,
+                                 conv=cfg.window.conv)
+            occ_res = OccStage(cfg, engine).run(
+                frags, local_chunks, mix, fs, shard_prefix, keep_tracks=True
+            )
+            nuc_res = NucStage(cfg, engine, pwm, fasta).run(
+                frags, local_chunks, occ_lookup_from_tracks(occ_res), shard_prefix
+            )
+            np.savetxt(
+                f"{shard_prefix}.nuc_dist.txt", nuc_res.nuc_dist[None], fmt="%d",
+                delimiter="\t",
+            )
+            _write_manifest(shard_prefix, pid, nhosts, _run_fingerprint(bam, bed, cfg))
+
+        # Finalize here only when we can know every host is done: single
+        # host, or a live process group's barrier. External launchers run
+        # all hosts, then call finalize_shards once (CLI `--finalize`).
+        if group_size() > 1:
+            _sync(nhosts)
+        if nhosts <= 1 or (group_size() > 1 and pid == 0):
+            with stage_timer("finalize"):
+                finalize_shards(out_prefix, nhosts, bam, bed, fasta_path, pwm_path, cfg)
+    finally:
+        if owns_group and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sync(nhosts: int) -> None:
+    """Barrier over the live process group; external launchers without
+    one coordinate through their own barrier (the caller waits for all
+    hosts before --finalize)."""
+    if nhosts <= 1 or group_size() <= 1:
+        return
+    import torch.distributed as dist
+
+    dist.barrier()
+
+
+def finalize_shards(
+    out_prefix: str,
+    nhosts: int,
+    bam: str,
+    bed: str,
+    fasta_path: Optional[str],
+    pwm_path: Optional[str],
+    cfg: RunConfig,
+) -> None:
+    """Concatenate per-host shards (rebuilding tabix), sum nuc_dist, then
+    run the host-side merge + nfr stages on the combined outputs. Refuses
+    to merge unless every shard carries a complete, fresh manifest
+    (check_manifests — VERDICT r1 item 10)."""
+    import argparse
+    import os
+
+    check_manifests(out_prefix, nhosts, _run_fingerprint(bam, bed, cfg))
+    for suffix in _SHARD_SUFFIXES:
+        merge_host_shards(out_prefix, suffix, nhosts)
+    dist = None
+    for k in range(nhosts):
+        p = f"{out_prefix}.part{k}.nuc_dist.txt"
+        d = np.loadtxt(p, ndmin=2)
+        dist = d if dist is None else dist + d
+        os.remove(p)
+        os.remove(f"{out_prefix}.part{k}.manifest.json")
+    np.savetxt(f"{out_prefix}.nuc_dist.txt", dist, fmt="%d", delimiter="\t")
+
+    from nucleoatac_torch.models.standalone import run_merge, run_nfr
+
+    margs = argparse.Namespace(
+        occpeaks=f"{out_prefix}.occpeaks.bed.gz",
+        nucpos=f"{out_prefix}.nucpos.bed.gz",
+        out=out_prefix,
+        sep=cfg.occ.occ_sep,
+    )
+    run_merge(margs)
+    nargs = argparse.Namespace(
+        bam=bam, bed=bed, out=out_prefix, fasta=fasta_path, pwm=pwm_path,
+        occ_track_prefix=out_prefix, calls=None,
+        # tuning flags consumed by build_config via getattr defaults
+        lower=cfg.sizes.lower, upper=cfg.sizes.upper, flank=cfg.occ.flank,
+        min_occ=cfg.occ.min_occ, occ_sep=cfg.occ.occ_sep,
+        nuc_sep=cfg.nuc.nuc_sep, min_z=cfg.nuc.min_z, min_lr=cfg.nuc.min_lr,
+        smooth_sd=cfg.nuc.smooth_sd, max_occ_upper=cfg.nfr.max_occ_upper,
+        min_nfr_len=cfg.nfr.min_nfr_len, max_nfr_len=cfg.nfr.max_nfr_len,
+        not_atac=not cfg.ingest.atac,
+    )
+    run_nfr(nargs)

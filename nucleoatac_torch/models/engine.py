@@ -1,17 +1,21 @@
 """TorchEngine: the batched window chains of the occ and nuc stages.
 
 Counterpart of nucleoatac_tpu/models/engine.py :: DeviceEngine for every
-single-host ``nucleoatac`` command, exact occ and nuc:
+``nucleoatac`` command, in exact and non-exact mode:
 
   raster (wire v7 pool or wire v6 delta12 records)
-    -> occupancy LL -> wire-v8 occ bytes                    (occ branch)
+    -> occupancy LL -> wire-v8 occ bytes (exact) or wire-v2 (non-exact)
   log bias (PWM over sequence codes, or an uploaded f32 row) -> B0
-    -> template xcorr -> margin-extended norm -> u16 bytes  (nuc branch)
+    -> template xcorr -> margin-extended norm -> u16 bytes  (exact nuc)
+                      -> f32 [B, 5, W] score tracks         (non-exact nuc)
 
 The fused pass (run_step_pool*) packs both branches into one uint8 row per
 window; the standalone stages call one branch each (occ_step_delta12_p2,
 nuc_step_delta12_*_m16) through the same programs, so both paths quantize
-the same f32 norm.
+the same f32 norm. Non-exact mode (occ.exact / nuc.exact False) has no
+host refinisher: occ_step_delta12_c3 ships full CI indices and
+nuc_step_delta12_*_c ships the f32 signal, lr and fuzz tracks the host
+selection reads.
 
 The template xcorr follows ``cfg.window.conv``: "diag" runs the K2 kernel
 (ops/nuc_scores.py, xcorr and epilogue in one launch); "diag_pallas" runs
@@ -38,7 +42,7 @@ from nucleoatac_torch.models.params import (
 from nucleoatac_torch.ops.biasmat import bias_mat_batch
 from nucleoatac_torch.ops.diag_xcorr import nuc_conv_outputs
 from nucleoatac_torch.ops.nuc_scores import nuc_scores
-from nucleoatac_torch.ops.occupancy import occupancy_packed2
+from nucleoatac_torch.ops.occupancy import occupancy_packed2, occupancy_packed3
 from nucleoatac_torch.ops.pwmseq import (
     pwm_bias_batch,
     unpack_2bit_codes,
@@ -48,6 +52,7 @@ from nucleoatac_torch.ops.rasterize import (
     rasterize_delta12_batch,
     rasterize_pool_batch,
 )
+from nucleoatac_torch.ops.smooth import gauss_smooth_batch
 from nucleoatac_torch.ops.xcorr import finish_scores, pad_valid
 
 # template-xcorr routes by cfg.window.conv; the reference's "direct" (two
@@ -100,7 +105,7 @@ class TorchEngine:
         self.core_lo = self.halo
         self.core_hi = self.width - self.halo
         self.core = cfg.window.core
-        self.steps = 0  # nuc batches dispatched (every _nucm call)
+        self.steps = 0  # nuc batches dispatched (every _nucm / _nuc5 call)
 
     def smooth_margin(self) -> int:
         """Columns of norm needed on each side of the core to reproduce the
@@ -142,6 +147,14 @@ class TorchEngine:
             p.ci_drop, p.exact_tol,
         )
 
+    def _occ_packed3(self, mat):
+        """Wire v2 occ bytes (non-exact mode): uint8 [B, 3, core]."""
+        p = self.cfg.occ
+        return occupancy_packed3(
+            mat, self.tables["log_mix"], p.flank, self.core_lo, self.core,
+            p.ci_drop, p.exact_tol,
+        )
+
     def _bias(self, log_bias):
         return bias_mat_batch(
             log_bias, self.tables["size_probs"], self.cfg.vmat.lower,
@@ -170,6 +183,31 @@ class TorchEngine:
             norm = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)[:, 0]
         m = self.smooth_margin()
         return norm[:, self.core_lo - m : self.core_lo + self.core + m]
+
+    def _nuc5(self, mat, log_bias):
+        """f32 [B, 5, W] (norm, norm_smooth, signal, lr, fuzz) over the
+        whole window (non-exact mode). "diag": one K2 launch, its channels
+        reordered and norm smoothed — the reference's use_pallas form;
+        "diag_pallas": two K1 launches and the epilogue, then the smooth.
+        Both routes give norm = 0 where n = 0, before the smooth."""
+        self.steps += 1
+        vlo = self.cfg.vmat.lower - self.cfg.sizes.lower
+        vup = self.cfg.vmat.upper - self.cfg.sizes.lower
+        fmat, b0 = mat[:, vlo:vup], self._bias(log_bias)
+        tabs = self.tables["_diag_kernels"]
+        if self.conv == "diag_pallas":
+            fo, bo = nuc_conv_outputs(fmat, b0, *tabs)
+            K = tabs[0].shape[1]
+            sc = finish_scores(
+                pad_valid(fo, self.width, K), pad_valid(bo, self.width, K),
+                self.cfg.nuc.var_floor,
+            )
+            norm, signal, lr, fuzz = sc.norm, sc.signal, sc.lr, sc.fuzz
+        else:
+            k2 = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)
+            norm, signal, lr, fuzz = (k2[:, i] for i in range(4))
+        smooth = gauss_smooth_batch(norm, self.tables["smooth_kernel"])
+        return torch.stack([norm, smooth, signal, lr, fuzz], dim=1)
 
     def _nucm16(self, mat, log_bias):
         """u16-packed _nucm: the fused and the standalone nuc paths both
@@ -236,6 +274,19 @@ class TorchEngine:
         """Standalone nuc from an uploaded f32 log-bias row [B, W] (the
         ``--bias_track`` path, engine built without a PWM)."""
         return self._nucm16(self._raster_delta12(buf), log_bias)
+
+    def occ_step_delta12_c3(self, buf):
+        """Non-exact occ: wire v6 records -> wire v2 occ bytes."""
+        return self._occ_packed3(self._raster_delta12(buf))
+
+    def nuc_step_delta12_seq_c(self, buf, packed_codes):
+        """Non-exact nuc: wire v6 records + nibble sequence codes -> f32
+        [B, 5, W] score tracks."""
+        return self._nuc5(self._raster_delta12(buf), self._logbias_nib(packed_codes))
+
+    def nuc_step_delta12_c(self, buf, log_bias):
+        """Non-exact nuc from an uploaded f32 log-bias row [B, W]."""
+        return self._nuc5(self._raster_delta12(buf), log_bias)
 
     # ---------------- host decoders (the reference's, verbatim) --------
     def unpack_run(self, buf: np.ndarray):

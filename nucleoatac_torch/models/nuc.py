@@ -6,8 +6,9 @@ reference's (sequence-code rows, bias tracks, host smoothing,
 f64-certified selection). The device scores arrive through the fused
 pass (models/fused.py) or through ``NucStage.run``, which uploads wire
 v6 delta12 records with nibble sequence codes, or with f32 log-bias rows
-when a bias track replaces the PWM. The legacy non-exact selection is not
-ported.
+when a bias track replaces the PWM. With nuc.exact False there is no
+refinisher: ``NucStage.run`` downloads the f32 [B, 5, W] score tracks and
+selects on them (``_select_legacy``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from nucleoatac_tpu.models.data import (
     pack_nibble_codes,
     tile_chunks,
 )
+from nucleoatac_tpu.utils.numerics import greedy_select_fast, local_max_candidates_fast
 from nucleoatac_torch.device import to_device
 from nucleoatac_torch.models.occ import _pipelined, check_transfer
 
@@ -205,7 +207,7 @@ def host_smooth(normm: np.ndarray, margin: int, gk: np.ndarray):
 
 class NucStage:
     """The `nuc` stage (run) and the per-chunk nuc finishing it shares
-    with the fused run (exact mode only)."""
+    with the fused run (exact mode; the fused run is exact only)."""
 
     def __init__(
         self,
@@ -215,11 +217,6 @@ class NucStage:
         fasta: Optional[FastaFile] = None,
         bias_source: Optional[BiasTrackSource] = None,
     ):
-        if not cfg.nuc.exact:
-            raise NotImplementedError(
-                "nucleoatac_torch supports nuc.exact=True only; the legacy "
-                "f32 selection is not ported yet"
-            )
         self.cfg = cfg
         self.engine = engine
         self.pwm = pwm or PWM.default()
@@ -234,11 +231,13 @@ class NucStage:
         # largest u16 norm step of the run (decoded signal of two runs can
         # differ by one step: each rounds to its own u16 level)
         self.max_qstep = 0.0
-        from nucleoatac_torch.models.nuc_exact import NucRefinisher
+        self.refinisher = None
+        if cfg.nuc.exact:
+            from nucleoatac_torch.models.nuc_exact import NucRefinisher
 
-        self.refinisher = NucRefinisher(
-            cfg, engine.vmat, engine.size_probs64, self.pwm, fasta
-        )
+            self.refinisher = NucRefinisher(
+                cfg, engine.vmat, engine.size_probs64, self.pwm, fasta
+            )
 
     def prepare(self, frags: BamFragments, tiles) -> None:
         """Per-run state for refinish position -> window mapping (also
@@ -273,8 +272,14 @@ class NucStage:
         writers = open_writers(out_prefix)
         tiles = tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)
         # exact mode downloads the norm only; the per-dyad stats are
-        # refinished in float64 on the host (models/nuc_exact.py)
-        names = ["norm", "norm_smooth"]
+        # refinished in float64 on the host (models/nuc_exact.py). Non-exact
+        # mode downloads every track the selection reads.
+        exact = cfg.nuc.exact
+        names = (
+            ["norm", "norm_smooth"]
+            if exact
+            else ["norm", "norm_smooth", "signal", "lr", "fuzz"]
+        )
         asm = ChunkAssembler(chunks, names)
         asm.expect(tiles)
         halo = eng.halo
@@ -303,34 +308,47 @@ class NucStage:
 
         seq_provider = SeqCodesProvider(self.fasta, chunks, eng, cfg.window.batch)
         dev = eng.device
+        # exact: u16 norm with smooth margins (wire v5); non-exact: f32
+        # [B, 5, W] tracks
+        if exact:
+            seq_step, bias_step = eng.nuc_step_delta12_seq_m16, eng.nuc_step_delta12_m16
+        else:
+            seq_step, bias_step = eng.nuc_step_delta12_seq_c, eng.nuc_step_delta12_c
         # a precomputed bias track forces the log-bias upload (the on-device
         # PWM would recompute bias from sequence)
         if eng.pwm is not None and self.bias_source is None:
+
             def dispatch(batch):
                 nib = pack_nibble_codes(seq_provider.rows(batch.meta))
-                return eng.nuc_step_delta12_seq_m16(
-                    to_device(batch.buf, dev), to_device(nib, dev)
-                )
+                return seq_step(to_device(batch.buf, dev), to_device(nib, dev))
         else:
+
             def dispatch(batch):
-                return eng.nuc_step_delta12_m16(
+                return bias_step(
                     to_device(batch.buf, dev), to_device(batch_log_bias(batch), dev)
                 )
 
         batches = make_delta12_batches(frags, tiles, eng.width, cfg.window.batch)
-        # wire v5: u16 norm with smooth margins; the smoothed track is
-        # recomputed on the host, and the per-window quantization step
-        # widens the tie guard's margin threshold
         for batch, out in _pipelined(batches, dispatch):
-            normm, qsteps = eng.f32_from_u16(out)
-            arrs = host_smooth(
-                normm.astype(np.float64), eng.smooth_margin(), self.refinisher.gk
-            )
-            for r, t in enumerate(batch.meta):
-                self.note_qstep(t.chunk_id, float(qsteps[r]))
+            if exact:
+                # wire v5 decode: the smoothed track is recomputed on the
+                # host, and the per-window quantization step widens the tie
+                # guard's margin threshold. Core-only columns: column 0 is
+                # core_start.
+                normm, qsteps = eng.f32_from_u16(out)
+                arrs = host_smooth(
+                    normm.astype(np.float64), eng.smooth_margin(), self.refinisher.gk
+                )
+                for t, q in zip(batch.meta, qsteps):
+                    self.note_qstep(t.chunk_id, float(q))
+                cols = [0] * len(batch.meta)
+            else:
+                stacked = out.astype(np.float64)  # [B, 5, W], whole windows
+                arrs = {n: stacked[:, i] for i, n in enumerate(names)}
+                cols = [t.core_start - t.win_start for t in batch.meta]
+            for r, (t, col) in enumerate(zip(batch.meta, cols)):
                 vals = {n: arrs[n][r] for n in names}
-                # core-only columns: column 0 == t.core_start
-                for cid, chunk, tracks in asm.add(t, vals, 0):
+                for cid, chunk, tracks in asm.add(t, vals, col):
                     bias_cache.pop(cid, None)  # all tiles dispatched; free it
                     seq_provider.pop(cid)
                     self._finish_chunk(cid, chunk, tracks, occ_lookup, writers, res)
@@ -355,9 +373,12 @@ class NucStage:
         from nucleoatac_tpu.io.tabix import prepare_bedgraph
 
         stats = NucStageResult()  # counter carrier only
-        calls, red, sel = self._select_exact(
-            cid, chunk, tracks, occ_lookup, stats
-        )
+        if self.refinisher is not None:
+            calls, red, sel = self._select_exact(
+                cid, chunk, tracks, occ_lookup, stats
+            )
+        else:
+            calls, red, sel = self._select_legacy(cid, chunk, tracks, occ_lookup)
         payloads = None
         if want_payloads:
             payloads = {
@@ -395,6 +416,27 @@ class NucStage:
                 writers[name].add_many(
                     chunk.chrom, starts, [p + 1 for p in starts], lines
                 )
+
+    def _select_legacy(self, cid, chunk, tracks, occ_lookup):
+        """Pre-exact flow: per-bp f32 stat tracks from the device
+        (cfg.nuc.exact = False)."""
+        p = self.cfg.nuc
+        norm = tracks["norm"]
+        smooth = tracks["norm_smooth"]
+        mask = (norm >= p.min_z) & (tracks["lr"] >= p.min_lr)
+        cand = local_max_candidates_fast(smooth, p.nuc_sep // 2, mask)
+        cand_idx = np.flatnonzero(cand)
+        sel = greedy_select_fast(smooth, cand, p.nuc_sep)
+
+        def mk(i: int) -> NucCall:
+            occ, lo, up = occ_lookup(cid, chunk, chunk.start + i)
+            return NucCall(
+                chunk.chrom, chunk.start + i, float(norm[i]), occ, lo, up,
+                float(tracks["lr"][i]), float(smooth[i]),
+                float(tracks["signal"][i]), float(tracks["fuzz"][i]),
+            )
+
+        return [mk(i) for i in sel], [mk(i) for i in cand_idx], sel
 
     # ---- exact mode (models/nuc_exact.py; VERDICT r1 item 3) -------------
     def _bias64_chunk(self, chunk) -> np.ndarray:

@@ -4,8 +4,8 @@ f64-exact finishing, occ peaks, and the pipelined batch loop.
 Counterpart of nucleoatac_tpu/models/occ.py. The host logic is the
 reference's; the device loop (_pipelined) is rewritten for CUDA streams.
 ``OccStage.run`` (the standalone and two-pass occ stage) uploads wire v6
-delta12 records and downloads wire v8 occ bytes; it runs exact mode only
-(occ.exact=False, the reference's wire v2, is not ported).
+delta12 records and downloads wire v8 occ bytes in exact mode, or wire v2
+(full CI indices, no f64 refinisher) when occ.exact is False.
 """
 from __future__ import annotations
 
@@ -185,11 +185,7 @@ class OccStage:
     ) -> OccStageResult:
         cfg = self.cfg
         eng = self.engine
-        if not cfg.occ.exact:
-            raise NotImplementedError(
-                "occ.exact=False (wire v2, occupancy_packed3) is not ported "
-                "(ROADMAP.md Queue 1)"
-            )
+        exact = cfg.occ.exact
         check_transfer(cfg)
         result = OccStageResult(mix=mix, fragmentsizes=fragmentsizes, chunks=chunks)
         writers = open_writers(out_prefix)
@@ -198,28 +194,36 @@ class OccStage:
         asm = ChunkAssembler(chunks, self.track_names())
         asm.expect(tiles)
 
-        # wire v8: argmax + certified bit, CI bounds as 5-bit deltas whose
-        # overflow clears the certified bit and routes the position through
-        # the f64 refinisher
+        # exact, wire v8: argmax + certified bit, CI bounds as 5-bit deltas
+        # whose overflow clears the certified bit and routes the position
+        # through the f64 refinisher; non-exact, wire v2: full CI indices
+        # (no refinisher to fall back on)
+        step = eng.occ_step_delta12_p2 if exact else eng.occ_step_delta12_c3
+
         def dispatch(batch):
-            return eng.occ_step_delta12_p2(to_device(batch.buf, eng.device))
+            return step(to_device(batch.buf, eng.device))
 
         batches = make_delta12_batches(frags, tiles, eng.width, cfg.window.batch)
         # occupancy values live on the discrete alpha grid; the wire carries
         # grid INDICES, decoded here with the f64 grid — lossless
         grid64 = mix.alpha_grid(cfg.occ)
         for batch, out in _pipelined(batches, dispatch):
-            idx, cert_b = eng.decode_occ2(out)
-            cert = cert_b.astype(np.float64)
+            if exact:  # wire v8
+                idx, cert_b = eng.decode_occ2(out)
+                cert = cert_b.astype(np.float64)
+            else:  # wire v2: [B, 3, core]
+                idx = out.astype(np.int64) & 0x7F
             occ_b = grid64[idx[:, 0]]
             lo_b = grid64[idx[:, 1]]
             up_b = grid64[idx[:, 2]]
             for r, t in enumerate(batch.meta):
                 # arrays are core-only: column 0 == t.core_start
-                vals = {"occ": occ_b[r], "lower": lo_b[r], "upper": up_b[r],
-                        "cert": cert[r]}
+                vals = {"occ": occ_b[r], "lower": lo_b[r], "upper": up_b[r]}
+                if exact:
+                    vals["cert"] = cert[r]
                 for cid, chunk, tracks in asm.add(t, vals, 0):
-                    self._exact_refinish(chunk, tracks, frags)
+                    if exact:
+                        self._exact_refinish(chunk, tracks, frags)
                     result.peaks.extend(self._finish_chunk(chunk, tracks, writers))
                     if keep_tracks:
                         result.tracks[cid] = tracks

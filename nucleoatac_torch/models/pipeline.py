@@ -113,104 +113,107 @@ def run_pipeline(
     resume: bool = False,
     bias_track: Optional[str] = None,
     device: str = "cuda",
+    profile_dir: Optional[str] = None,
 ) -> RunResult:
     """Run the whole pipeline on ``device`` ("cuda" raises when no card is
     available; "cpu" runs the plain versions of the kernels). The xcorr
-    route is ``cfg.window.conv``."""
-    from nucleoatac_tpu.utils.logging import log, stage_timer
+    route is ``cfg.window.conv``; ``profile_dir`` writes a torch.profiler
+    trace of the run there."""
+    from nucleoatac_torch.utils.logging import log, maybe_profile, stage_timer
 
     cfg = cfg or RunConfig()
     warn_synthetic_defaults(pwm_path, vmat_path, bias_track, needs_vmat=True)
-    with stage_timer("ingest"):
-        frags = scan_bam(bam, cfg.ingest)
-        log.info("ingest: %d fragments, %d chroms",
-                 frags.n_fragments(), len(frags.ref_names))
-    fasta = FastaFile(fasta_path) if fasta_path else None
-    pwm = PWM.open(pwm_path) if pwm_path else PWM.default()
-    vmat = VMat.open(vmat_path) if vmat_path else VMat.default(cfg.vmat)
-    bias_source = BiasTrackSource(bias_track) if bias_track else None
-    chunks = ChunkList.read(bed, frags.chrom_dict).merge()
-    log.info("peaks: %d chunks, %d bp", len(chunks), chunks.total_bp())
+    with maybe_profile(profile_dir, device):
+        with stage_timer("ingest"):
+            frags = scan_bam(bam, cfg.ingest)
+            log.info("ingest: %d fragments, %d chroms",
+                     frags.n_fragments(), len(frags.ref_names))
+        fasta = FastaFile(fasta_path) if fasta_path else None
+        pwm = PWM.open(pwm_path) if pwm_path else PWM.default()
+        vmat = VMat.open(vmat_path) if vmat_path else VMat.default(cfg.vmat)
+        bias_source = BiasTrackSource(bias_track) if bias_track else None
+        chunks = ChunkList.read(bed, frags.chrom_dict).merge()
+        log.info("peaks: %d chunks, %d bp", len(chunks), chunks.total_bp())
 
-    def make_engine(mix, fs):
-        # a bias track replaces the on-device PWM (the nuc stage uploads
-        # f32 log-bias rows), which also rules out the fused pass
-        return TorchEngine(
-            cfg, mix, fs, vmat, pwm=None if bias_source else pwm,
-            device=device, conv=cfg.window.conv,
-        )
-
-    occ_stage = None
-    if resume and _occ_outputs_exist(out_prefix):
-        with stage_timer("occ (resumed from files)"):
-            fs, mix, occ_res = _load_occ_stage(out_prefix, cfg, chunks)
-            engine = make_engine(mix, fs)
-        with stage_timer("nuc"):
-            nuc_stage = NucStage(cfg, engine, pwm, fasta, bias_source=bias_source)
-            nuc_res = nuc_stage.run(
-                frags, chunks, occ_lookup_from_tracks(occ_res), out_prefix
+        def make_engine(mix, fs):
+            # a bias track replaces the on-device PWM (the nuc stage uploads
+            # f32 log-bias rows), which also rules out the fused pass
+            return TorchEngine(
+                cfg, mix, fs, vmat, pwm=None if bias_source else pwm,
+                device=device, conv=cfg.window.conv,
             )
-            log.info("nuc: %d dyads (%d redundant)",
-                     len(nuc_res.calls), len(nuc_res.redundant))
-    else:
-        with stage_timer("fit"):
-            fs, mix = fit_mixture(frags, chunks, cfg)
-            fs.save(f"{out_prefix}.fragmentsizes.txt")
-            mix.save(f"{out_prefix}.occ_fit.txt")
-            if write_plots:
-                from nucleoatac_tpu.utils import plotting
 
-                plotting.plot_occ_fit(mix, f"{out_prefix}.occ_fit.eps")
-            engine = make_engine(mix, fs)
-        occ_stage = OccStage(cfg, engine)
-        nuc_stage = NucStage(cfg, engine, pwm, fasta, bias_source=bias_source)
-        if fused_supported(cfg, engine):
-            with stage_timer("occ+nuc (fused pass)"):
-                occ_res, nuc_res = run_fused(
-                    cfg, engine, occ_stage, nuc_stage, frags, chunks, mix, fs,
-                    out_prefix, keep_tracks=False,
-                )
-                log.info(
-                    "occ: %d occ peaks; nuc: %d dyads (%d redundant)",
-                    len(occ_res.peaks), len(nuc_res.calls),
-                    len(nuc_res.redundant),
-                )
-        else:
-            with stage_timer("occ"):
-                occ_res = occ_stage.run(
-                    frags, chunks, mix, fs, out_prefix, keep_tracks=True
-                )
-                log.info("occ: %d occ peaks", len(occ_res.peaks))
+        occ_stage = None
+        if resume and _occ_outputs_exist(out_prefix):
+            with stage_timer("occ (resumed from files)"):
+                fs, mix, occ_res = _load_occ_stage(out_prefix, cfg, chunks)
+                engine = make_engine(mix, fs)
             with stage_timer("nuc"):
+                nuc_stage = NucStage(cfg, engine, pwm, fasta, bias_source=bias_source)
                 nuc_res = nuc_stage.run(
                     frags, chunks, occ_lookup_from_tracks(occ_res), out_prefix
                 )
                 log.info("nuc: %d dyads (%d redundant)",
                          len(nuc_res.calls), len(nuc_res.redundant))
-        # both paths hand downstream consumers the SAME occ surface: the
-        # bedgraphs just written (the fused pass evicted its tracks as nuc
-        # consumed them; the reference's nfr stage also reads the files)
-        occ_res.tracks = _LazyOccTracks(OccTrackReader(out_prefix), chunks)
-    np.savetxt(
-        f"{out_prefix}.nuc_dist.txt", nuc_res.nuc_dist[None], fmt="%d",
-        delimiter="\t",
-    )
-    if write_plots:
-        from nucleoatac_tpu.utils import plotting
+        else:
+            with stage_timer("fit"):
+                fs, mix = fit_mixture(frags, chunks, cfg)
+                fs.save(f"{out_prefix}.fragmentsizes.txt")
+                mix.save(f"{out_prefix}.occ_fit.txt")
+                if write_plots:
+                    from nucleoatac_tpu.utils import plotting
 
-        plotting.plot_nuc_dist(nuc_res.nuc_dist, f"{out_prefix}.nuc_dist.eps")
-
-    combined = merge_maps(
-        nuc_res.calls, occ_res.peaks, cfg.occ.occ_sep,
-        f"{out_prefix}.nucmap_combined.bed.gz",
-    )
-    with stage_timer("nfr"):
-        # nfr iterates chunks strictly in order -> stream the written occ
-        # bedgraphs in ONE pass (same printed surface as occ_res.tracks)
-        nfrs = call_nfrs(
-            cfg, chunks, combined, SequentialOccTracks(out_prefix, chunks),
-            frags, pwm, fasta, f"{out_prefix}.nfrpos.bed.gz",
-            bias_fn=bias_source.log_bias if bias_source else None,
+                    plotting.plot_occ_fit(mix, f"{out_prefix}.occ_fit.eps")
+                engine = make_engine(mix, fs)
+            occ_stage = OccStage(cfg, engine)
+            nuc_stage = NucStage(cfg, engine, pwm, fasta, bias_source=bias_source)
+            if fused_supported(cfg, engine):
+                with stage_timer("occ+nuc (fused pass)"):
+                    occ_res, nuc_res = run_fused(
+                        cfg, engine, occ_stage, nuc_stage, frags, chunks, mix, fs,
+                        out_prefix, keep_tracks=False,
+                    )
+                    log.info(
+                        "occ: %d occ peaks; nuc: %d dyads (%d redundant)",
+                        len(occ_res.peaks), len(nuc_res.calls),
+                        len(nuc_res.redundant),
+                    )
+            else:
+                with stage_timer("occ"):
+                    occ_res = occ_stage.run(
+                        frags, chunks, mix, fs, out_prefix, keep_tracks=True
+                    )
+                    log.info("occ: %d occ peaks", len(occ_res.peaks))
+                with stage_timer("nuc"):
+                    nuc_res = nuc_stage.run(
+                        frags, chunks, occ_lookup_from_tracks(occ_res), out_prefix
+                    )
+                    log.info("nuc: %d dyads (%d redundant)",
+                             len(nuc_res.calls), len(nuc_res.redundant))
+            # both paths hand downstream consumers the SAME occ surface: the
+            # bedgraphs just written (the fused pass evicted its tracks as nuc
+            # consumed them; the reference's nfr stage also reads the files)
+            occ_res.tracks = _LazyOccTracks(OccTrackReader(out_prefix), chunks)
+        np.savetxt(
+            f"{out_prefix}.nuc_dist.txt", nuc_res.nuc_dist[None], fmt="%d",
+            delimiter="\t",
         )
-        log.info("nfr: %d NFRs; combined map: %d", len(nfrs), len(combined))
-    return RunResult(occ_res, nuc_res, combined, nfrs, engine, occ_stage, nuc_stage)
+        if write_plots:
+            from nucleoatac_tpu.utils import plotting
+
+            plotting.plot_nuc_dist(nuc_res.nuc_dist, f"{out_prefix}.nuc_dist.eps")
+
+        combined = merge_maps(
+            nuc_res.calls, occ_res.peaks, cfg.occ.occ_sep,
+            f"{out_prefix}.nucmap_combined.bed.gz",
+        )
+        with stage_timer("nfr"):
+            # nfr iterates chunks strictly in order -> stream the written occ
+            # bedgraphs in ONE pass (same printed surface as occ_res.tracks)
+            nfrs = call_nfrs(
+                cfg, chunks, combined, SequentialOccTracks(out_prefix, chunks),
+                frags, pwm, fasta, f"{out_prefix}.nfrpos.bed.gz",
+                bias_fn=bias_source.log_bias if bias_source else None,
+            )
+            log.info("nfr: %d NFRs; combined map: %d", len(nfrs), len(combined))
+        return RunResult(occ_res, nuc_res, combined, nfrs, engine, occ_stage, nuc_stage)

@@ -37,10 +37,14 @@ def diag_xcorr(x: torch.Tensor, k2d: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, 2, W - K + 1), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    rc = load_library().nucleoatac_diag_xcorr(
-        x.data_ptr(), x.stride(0), k2d.data_ptr(), out.data_ptr(),
-        B, S, W, K, stream_handle(x.device),
-    )
+    lib = load_library()
+    # the launch and its shared-memory attribute go to x's card, whatever
+    # the process's current device is
+    with torch.cuda.device(x.device):
+        rc = lib.nucleoatac_diag_xcorr(
+            x.data_ptr(), x.stride(0), k2d.data_ptr(), out.data_ptr(),
+            B, S, W, K, stream_handle(x.device),
+        )
     if rc != 0:
         raise RuntimeError(f"diag_xcorr kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

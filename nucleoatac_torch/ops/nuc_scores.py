@@ -60,11 +60,15 @@ def nuc_scores(
     out = torch.empty((B, 5, W), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    rc = load_library().nucleoatac_nuc_scores(
-        frag_mat.data_ptr(), frag_mat.stride(0), b0.data_ptr(), b0.stride(0),
-        f2d.data_ptr(), f1d.data_ptr(), b2d.data_ptr(), b1d.data_ptr(),
-        out.data_ptr(), B, S, W, K, float(var_floor), stream_handle(dev),
-    )
+    lib = load_library()
+    # the launch and its shared-memory attribute go to the tensors' card,
+    # whatever the process's current device is
+    with torch.cuda.device(dev):
+        rc = lib.nucleoatac_nuc_scores(
+            frag_mat.data_ptr(), frag_mat.stride(0), b0.data_ptr(), b0.stride(0),
+            f2d.data_ptr(), f1d.data_ptr(), b2d.data_ptr(), b1d.data_ptr(),
+            out.data_ptr(), B, S, W, K, float(var_floor), stream_handle(dev),
+        )
     if rc != 0:
         raise RuntimeError(f"nuc_scores kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -61,6 +61,41 @@ def _picks(ll: torch.Tensor, ci_drop: float):
     return best, first, last, llmax, margin, ci_margin
 
 
+def occupancy_packed3(
+    mat: torch.Tensor,  # [B, S, W] float32 counts (integer-valued)
+    log_mix: torch.Tensor,  # [S, G] float32
+    flank: int,
+    core_lo: int,
+    core_len: int,
+    ci_drop: float = 1.92,
+    exact_tol: float = 0.05,
+) -> torch.Tensor:
+    """Wire format v2 (non-exact mode): uint8 [B, 3, core_len].
+
+    Channels: 0 = argmax grid index | certified << 7, 1 = CI-lower index,
+    2 = CI-upper index, over the window core [core_lo, core_lo +
+    core_len). An empty window is certified and reads 0/0/G-1. There is
+    no refinisher in this mode, so the CI bounds travel as full
+    indices."""
+    G = log_mix.shape[1]
+    if G > 128:
+        raise ValueError(
+            f"grid size {G} > 128 overflows the 7-bit packed grid index"
+        )
+    ll, n = _ll_and_n(mat, log_mix, flank)
+    ll = ll[:, core_lo : core_lo + core_len]
+    n = n[:, core_lo : core_lo + core_len]
+    best, first, last, _, margin, ci_margin = _picks(ll, ci_drop)
+    empty = n <= 0
+    certified = ((margin > exact_tol) & (ci_margin > exact_tol)) | empty
+    ch0 = torch.where(empty, 0, best) | (certified.long() << 7)
+    out = torch.stack(
+        [ch0, torch.where(empty, 0, first), torch.where(empty, G - 1, last)],
+        dim=1,
+    )
+    return out.to(torch.uint8)
+
+
 def occupancy_packed2(
     mat: torch.Tensor,  # [B, S, W] float32 counts (integer-valued)
     log_mix: torch.Tensor,  # [S, G] float32

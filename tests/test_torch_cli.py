@@ -178,14 +178,6 @@ def test_cli_rejects_unported_choices(flag):
     assert e.value.code == 2
 
 
-@pytest.mark.parametrize("flag", [
-    ["--profile", "trace"], ["--num_hosts", "2"], ["--host_id", "0"], ["--finalize"],
-])
-def test_unported_run_flags_exit_nonzero(flag, capsys):
-    assert torch_nucleoatac(["run", *BASE, "--device", "cpu", *flag]) != 0
-    assert "not ported yet (ROADMAP.md)" in capsys.readouterr().err
-
-
 def test_upper_above_255_exits_with_error():
     args = nucleoatac_parser().parse_args(["run", *BASE, "--upper", "300"])
     with pytest.raises(SystemExit, match="--upper 300 > 255"):

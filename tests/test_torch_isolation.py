@@ -1,11 +1,14 @@
 """nucleoatac_torch runs in a process where `import jax` fails: every
 module imports, run_pipeline(device='cpu') completes on the synthetic
-example, and so do the two command lines (with matplotlib blocked too, as
-on a machine without it, under --no_plots)."""
+example in exact and non-exact mode, and so do the two command lines and
+a one-host `run --num_hosts 1 --host_id 0` (with matplotlib blocked too,
+as on a machine without it, under --no_plots)."""
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -35,6 +38,12 @@ PORT_MODULES = [
     "nucleoatac_torch.models.nfr",
     "nucleoatac_torch.models.standalone",
     "nucleoatac_torch.models.pipeline",
+    "nucleoatac_torch.models.distributed_pipeline",
+    "nucleoatac_torch.parallel",
+    "nucleoatac_torch.parallel.distributed",
+    "nucleoatac_torch.parallel.mesh",
+    "nucleoatac_torch.utils",
+    "nucleoatac_torch.utils.logging",
     "nucleoatac_torch.pyatac",
     "nucleoatac_torch.cli",
     "nucleoatac_torch.cli.nucleoatac",
@@ -67,18 +76,22 @@ def test_every_port_module_imports_without_jax(tmp_path):
     assert f"imported {len(PORT_MODULES)}" in out
 
 
-def test_run_pipeline_cpu_without_jax(tmp_path):
+@pytest.mark.parametrize("exact", [True, False])
+def test_run_pipeline_cpu_without_jax(tmp_path, exact):
     out = _run_without_jax(
-        """
-        import pathlib
+        f"""
+        import dataclasses, pathlib
         from synth import make_example
         from nucleoatac_tpu.config import RunConfig, WindowParams
         from nucleoatac_torch.models.pipeline import run_pipeline
         d = pathlib.Path('.')
         ex = make_example(d)
+        cfg = RunConfig(window=WindowParams(core=256, batch=4))
+        cfg = dataclasses.replace(
+            cfg, occ=dataclasses.replace(cfg.occ, exact={exact}),
+            nuc=dataclasses.replace(cfg.nuc, exact={exact}))
         res = run_pipeline(
-            ex['bam'], ex['bed'], 'out', fasta_path=ex['fasta'],
-            cfg=RunConfig(window=WindowParams(core=256, batch=4)),
+            ex['bam'], ex['bed'], 'out', fasta_path=ex['fasta'], cfg=cfg,
             write_plots=False, device='cpu',
         )
         assert sys.modules['jax'] is None
@@ -111,3 +124,27 @@ def test_command_lines_cpu_without_jax_or_matplotlib(tmp_path):
     assert "rc 0 0" in out
     assert (tmp_path / "st.occ.bedgraph.gz").exists()
     assert (tmp_path / "sz.fragmentsizes.txt").exists()
+
+
+def test_one_host_run_without_jax(tmp_path):
+    """`run --num_hosts 1 --host_id 0` writes its shard, then finalizes it
+    itself (one host needs no barrier)."""
+    out = _run_without_jax(
+        """
+        import os, pathlib
+        sys.modules['matplotlib'] = None
+        from synth import make_example
+        from nucleoatac_torch.cli.nucleoatac import main as nucleoatac
+        ex = make_example(pathlib.Path('.'))
+        rc = nucleoatac(['run', '--bed', ex['bed'], '--bam', ex['bam'],
+                         '--fasta', ex['fasta'], '--out', 'h', '--batch', '4',
+                         '--device', 'cpu', '--no_plots', '--num_hosts', '1',
+                         '--host_id', '0'])
+        assert sys.modules['jax'] is None
+        print('rc', rc, 'parts', sum('.part' in f for f in os.listdir('.')))
+        """,
+        tmp_path,
+    )
+    assert "rc 0 parts 0" in out
+    assert (tmp_path / "h.nfrpos.bed.gz").exists()
+    assert (tmp_path / "h.nucpos.bed.gz.tbi").exists()
