@@ -38,6 +38,20 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 against phase 5 by parity.compare_runs (signal within
                 nuc.exact_tol + one u16 step); the K1 route's norm on a
                 production batch within nuc.exact_tol of f64.
+  8b. wires   — the wires beside pool and the direct route. Full width:
+                `nucleoatac-torch run --upper 500` on phase 5's peaks with
+                10% di-nucleosomal fragments (synth_dataset's dinuc) falls
+                back to the packed wire: K2 launches == nuc batches, the
+                spot-check ran, ten outputs, occ peaks in [0, 1], fragments
+                past 255 bp in the fit, max |LL - f64| of a [64, 500, 1536]
+                batch within occ.exact_tol; phase 5's dataset on the delta,
+                delta12 and packed wires (the two passes) prints phase 5's
+                rows; conv="direct" (two conv1d, no kernel) against phase 5
+                (signal within exact_tol + one u16 step) and its norm on a
+                production batch within exact_tol of f64. make_example size:
+                delta, delta12, frags, dense, packed and packed at --upper
+                300 (long-fragment example), cuda on both kernel routes
+                against cpu by parity.compare_runs.
   9. resume+bias — on make_example data: `run` then `run --resume` give
                 identical nucpos and nfrpos; `pyatac-torch bias` then
                 `run --bias_track` give the FASTA run's dyads and a
@@ -62,7 +76,8 @@ Phases (one line each; any failure raises and the script exits nonzero):
  13. profile  — `run --profile DIR` on make_example data: the trace
                 exists and names nuc_scores_kernel.
 Then one JSON line of kernel records (K2's launches from phase 5, K1's
-from phase 8, and each kernel's launches on every path that ran it) and as
+from phase 8, and each kernel's launches on every path that ran it,
+phase 8b's wires included) and as
 the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX (``jax`` is blocked in this process) and nothing of
@@ -78,6 +93,8 @@ import tempfile
 import time
 
 sys.modules["jax"] = None  # the port must run without JAX
+
+from nucleoatac_torch.synthetic import make_example, make_long_example, synth_dataset  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_RECORDS: list = []
@@ -275,6 +292,18 @@ def hold(what: str, got, ref, rtol: float, atol: float) -> float:
             f"{what}: |{float(g.flatten()[i])} - {float(r.flatten()[i])}| past the "
             f"bar (rtol {rtol}, atol {atol}); max|diff| {float(d.max()):.3e}")
     return float(d.max())
+
+
+def same_rows(a: str, b: str) -> int:
+    """Row count of two bgzipped outputs that hold the same rows (equal
+    decompressed bytes); raises if they differ or are empty. Cheaper than
+    parsing millions of rows into lists."""
+    from nucleoatac_torch.parity import _same_text
+
+    text = _same_text(a, b)
+    if not text:
+        raise AssertionError(f"{b}: rows differ from {a}, or hold none")
+    return text.count(b"\n")
 
 
 def score_bars(exact_tol: float) -> dict:
@@ -487,88 +516,6 @@ def phase_ll() -> None:
           f"{scale:.1f} (occ.exact_tol {cfg.occ.exact_tol})")
 
 
-def synth_dataset(d: str, n_chroms: int, n_peaks: int, peak_bp: int,
-                  frags_per_peak: int, seed: int = 7):
-    """ATAC-like synthetic data, the generator of scripts/bench_e2e.py
-    (same seed, same fragments): per peak, a nucleosome array at ~180 bp
-    spacing with one NFR gap, nucleosomal fragments (~147+9 raw) around the
-    dyads and short fragments in linker and NFR space; a random genome.
-    Written with the port's own BAM and FASTA writers."""
-    import numpy as np
-
-    from nucleoatac_torch.io.bam_writer import write_bam
-    from nucleoatac_torch.io.fasta import write_fasta
-
-    bam, bed, fa = (os.path.join(d, n) for n in ("synth.bam", "peaks.bed", "synth.fa"))
-    rng = np.random.default_rng(seed)
-    per_chrom = n_peaks // n_chroms
-    gap = 5000
-    chrom_len = (peak_bp + gap) * per_chrom + 2 * gap
-    names = [f"chr{i + 1}" for i in range(n_chroms)]
-    frags, bed_rows = [], []
-    for ci, name in enumerate(names):
-        for pi in range(per_chrom):
-            start = gap + pi * (peak_bp + gap)
-            end = start + peak_bp
-            bed_rows.append((name, start, end))
-            dyads = list(range(start + 90, end - 90, 180))
-            if len(dyads) > 4:
-                del dyads[len(dyads) // 2]
-            n_nuc = int(frags_per_peak * 0.55)
-            n_short = frags_per_peak - n_nuc
-            dy = rng.choice(dyads, size=n_nuc)
-            szs = np.clip(rng.normal(156, 14, n_nuc), 130, 250).astype(int)
-            mids = dy + np.clip(rng.normal(0, 12, n_nuc), -40, 40).astype(int)
-            for m, sz in zip(mids, szs):
-                frags.append((ci, int(m) - (int(sz) - 1) // 2 - 4, int(sz)))
-            sl = np.clip(rng.exponential(42, n_short) + 24, 24, 128).astype(int)
-            ll = rng.integers(start, end - 40, n_short)
-            for left, sz in zip(ll, sl):
-                frags.append((ci, int(left), int(sz)))
-    frags.sort(key=lambda t: (t[0], t[1]))
-    write_bam(bam, names, [chrom_len] * n_chroms, frags)
-    with open(bed, "w") as fh:
-        for name, a, b in bed_rows:
-            fh.write(f"{name}\t{a}\t{b}\n")
-    write_fasta(fa, {n: "".join(rng.choice(list("ACGT"), chrom_len)) for n in names})
-    return bam, bed, fa
-
-
-def make_example(d: str, seed: int = 42, n_per_dyad: int = 300, n_nfr: int = 500,
-                 n_bg: int = 200) -> dict:
-    """The small example of tests/synth.py (same seed, same bytes): four
-    planted dyads and one NFR on a 6,000 bp chromosome, one peak. Written
-    with the port's own writers."""
-    import numpy as np
-
-    from nucleoatac_torch.io.bam_writer import write_bam
-    from nucleoatac_torch.io.fasta import write_fasta
-
-    rng = np.random.default_rng(seed)
-    frags = []
-    for dyad in (1000, 1200, 1500, 2600):
-        for _ in range(n_per_dyad):
-            size = int(np.clip(rng.normal(156, 12), 120, 250))
-            mid = dyad + int(np.clip(rng.normal(0, 8), -30, 30))
-            frags.append((0, mid - (size - 1) // 2 - 4, size))
-    for _ in range(n_nfr):
-        size = int(np.clip(rng.exponential(40) + 24, 24, 119))
-        left = int(rng.integers(1700, 2500 - 50))
-        frags.append((0, left, size))
-    for _ in range(n_bg):
-        size = int(np.clip(rng.exponential(45) + 24, 24, 245))
-        left = int(rng.integers(500, 3400))
-        frags.append((0, left, size))
-    bam = os.path.join(d, "example.bam")
-    write_bam(bam, ["chr1"], [6000], frags)
-    fa = os.path.join(d, "example.fa")
-    write_fasta(fa, {"chr1": "".join(rng.choice(list("ACGT"), 6000))})
-    bed = os.path.join(d, "peaks.bed")
-    with open(bed, "w") as fh:
-        fh.write("chr1\t500\t3500\tpeak1\n")
-    return {"dir": d, "bam": bam, "fasta": fa, "bed": bed}
-
-
 def make_dataset(d: str, n_peaks: int = 1000) -> dict:
     """Phase 5's synthetic data (4 chroms x n_peaks/4 peaks x 2,000 bp x
     2,000 fragments per peak), shared by phases 7, 8 and 10."""
@@ -670,7 +617,7 @@ def phase_stages(data: dict, run5: dict) -> int:
 
     from nucleoatac_torch.config import RunConfig
     from nucleoatac_torch.cli.nucleoatac import main as nucleoatac
-    from nucleoatac_torch.parity import RUN_SUFFIXES, read_rows
+    from nucleoatac_torch.parity import RUN_SUFFIXES
 
     prefix = os.path.join(data["dir"], "stages")
     # delta12 batches fill up across chunks; the fused pass's pool batches
@@ -695,13 +642,7 @@ def phase_stages(data: dict, run5: dict) -> int:
         raise AssertionError("nucleoatac-torch merge failed")
     if nucleoatac(["nfr", *base]) != 0:
         raise AssertionError("nucleoatac-torch nfr failed")
-    rows = 0
-    for sfx in RUN_SUFFIXES:
-        a, b = read_rows(run5["prefix"] + sfx), read_rows(prefix + sfx)
-        if a != b or not a:
-            raise AssertionError(f"stages {sfx}: rows differ from the fused run "
-                                 f"({len(a)} vs {len(b)} rows)")
-        rows += len(a)
+    rows = sum(same_rows(run5["prefix"] + sfx, prefix + sfx) for sfx in RUN_SUFFIXES)
     w = run5["windows"]
     phase("stages", f"occ {walls['occ']:.2f} s = {w / walls['occ']:.1f} windows/s, "
           f"nuc {walls['nuc']:.2f} s = {w / walls['nuc']:.1f} windows/s "
@@ -773,6 +714,280 @@ def phase_conv(data: dict, run5: dict) -> int:
           f"signal max|K1 route - K2 route| {sig} (bar exact_tol + step = "
           f"{tol:.3e}); K1 route max|norm-f64| {err:.3e} on a production batch")
     return launches["diag_xcorr"]
+
+
+def _spy_pipeline():
+    """Wrap run_pipeline and run_fused of models/pipeline.py so that a run
+    made through the command line hands back its RunResult and config, and
+    each run records whether it took the fused pass. Returns (seen, undo)."""
+    from nucleoatac_torch.models import pipeline
+
+    seen = {"fused": 0}
+    real_run, real_fused = pipeline.run_pipeline, pipeline.run_fused
+
+    def run(*a, **k):
+        seen["res"], seen["cfg"] = real_run(*a, **k), k["cfg"]
+        return seen["res"]
+
+    def fused(*a, **k):
+        seen["fused"] += 1
+        return real_fused(*a, **k)
+
+    pipeline.run_pipeline, pipeline.run_fused = run, fused
+
+    def undo():
+        pipeline.run_pipeline, pipeline.run_fused = real_run, real_fused
+
+    return seen, undo
+
+
+def _wires_upper500(data: dict) -> tuple:
+    """`nucleoatac-torch run --upper 500` at full width on phase 5's peaks
+    with 10% di-nucleosomal fragments: the packed fallback on the card."""
+    import numpy as np
+    import torch
+
+    from nucleoatac_torch.cli.nucleoatac import main as nucleoatac
+    from nucleoatac_torch.device import to_device
+    from nucleoatac_torch.io.bam import scan_bam
+    from nucleoatac_torch.models.data import make_packed_batches, tile_chunks
+    from nucleoatac_torch.ops.occupancy import _ll_and_n
+    from nucleoatac_torch.parity import RUN_SUFFIXES, read_rows
+
+    wd = os.path.join(data["dir"], "wires")
+    os.makedirs(wd)
+    t0 = time.perf_counter()
+    bam, bed, fa = synth_dataset(wd, 4, data["n_peaks"], 2000, 2000, dinuc=0.1)
+    t_data = time.perf_counter() - t0
+    prefix = os.path.join(wd, "upper500")
+    seen, undo = _spy_pipeline()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = nucleoatac(["run", "--bed", bed, "--bam", bam, "--fasta", fa, "--out", prefix,
+                         "--upper", "500", "--device", "cuda", "--no_plots"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        undo()
+    res, cfg = seen["res"], seen["cfg"]
+    steps = res.engine.steps
+    if rc != 0 or (cfg.window.transfer, cfg.sizes.upper) != ("packed", 500) or seen["fused"]:
+        raise AssertionError(f"upper 500: rc {rc}, {cfg.window}, fused {seen['fused']}")
+    if steps == 0 or launches != {"diag_xcorr": 0, "nuc_scores": steps}:
+        raise AssertionError(f"upper 500: launches {launches} for {steps} batches")
+    for sfx in RUN_SUFFIXES:
+        for path in (prefix + sfx, prefix + sfx + ".tbi"):
+            if not os.path.exists(path):
+                raise AssertionError(f"upper 500: missing output {path}")
+    if res.occ_stage.n_spot_checked == 0:
+        raise AssertionError("upper 500: the occ spot-check guard did not run")
+    occ = [float(r[3]) for r in read_rows(prefix + ".occpeaks.bed.gz")]
+    if not res.nuc.calls or not occ or not all(0.0 <= v <= 1.0 for v in occ):
+        raise AssertionError("upper 500: no dyad calls, or occ peaks out of [0, 1]")
+    size, count = np.loadtxt(prefix + ".fragmentsizes.txt").T
+    past = int(count[size > 255].sum())
+    if len(size) != 500 or past == 0:
+        raise AssertionError(f"upper 500: {len(size)} sizes, {past} fragments past 255")
+    # the occupancy LL of the run's first batch at S = 500 against float64
+    eng = res.engine
+    tiles = tile_chunks(res.occ.chunks, cfg.window, cfg.occ, cfg.vmat)
+    b = next(make_packed_batches(scan_bam(bam, cfg.ingest), tiles[:cfg.window.batch],
+                                 eng.width, cfg.window.batch))
+    mat = eng._raster_packed(to_device(b.packed, eng.device))
+    lm = eng.tables["log_mix"]
+    ll, _ = _ll_and_n(mat, lm, cfg.occ.flank)
+    ll64, _ = _ll_and_n(mat.double(), lm.double(), cfg.occ.flank)
+    ll_err = float((ll.double() - ll64).abs().max())
+    if ll_err > cfg.occ.exact_tol:
+        raise AssertionError(f"upper 500: max|LL - f64| {ll_err:.3e} > occ.exact_tol")
+    windows = len(tiles)
+    nbytes = 4 * mat.numel()
+    msg = (f"--upper 500 (packed fallback) at full width: {windows} windows, {steps} "
+           f"batches, run {wall:.2f} s = {windows / wall:.1f} windows/s (data synthesis "
+           f"{t_data:.1f} s, not timed); {past} fragments past 255 bp in the fit; "
+           f"raster {list(mat.shape)} f32 = {nbytes / 1e6:.1f} MB per batch; "
+           f"max|LL-f64| {ll_err:.3e} at max|LL| {float(ll64.abs().max()):.1f} "
+           f"(occ.exact_tol {cfg.occ.exact_tol}); {len(res.nuc.calls)} dyads; "
+           f"launches {launches}")
+    return msg, {"nuc_scores": launches["nuc_scores"]}
+
+
+def _wires_full(data: dict, run5: dict) -> tuple:
+    """Phase 5's dataset on the delta, delta12 and packed wires, which run
+    the two passes: every file equal to phase 5's rows."""
+    import torch
+
+    from nucleoatac_torch.config import RunConfig, WindowParams
+    from nucleoatac_torch.models import pipeline
+    from nucleoatac_torch.parity import RUN_SUFFIXES
+
+    msgs, paths = [], {}
+    for wire in ("delta", "delta12", "packed"):
+        cfg = RunConfig(window=WindowParams(transfer=wire))
+        prefix = os.path.join(data["dir"], f"wire_{wire}")
+        seen, undo = _spy_pipeline()
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = pipeline.run_pipeline(data["bam"], data["bed"], prefix,
+                                        fasta_path=data["fasta"], cfg=cfg,
+                                        write_plots=False, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            undo()
+        steps = res.engine.steps
+        if seen["fused"] or steps == 0 or launches != {"diag_xcorr": 0, "nuc_scores": steps}:
+            raise AssertionError(f"{wire}: fused {seen['fused']}, launches {launches} "
+                                 f"for {steps} batches")
+        for sfx in RUN_SUFFIXES:
+            same_rows(run5["prefix"] + sfx, prefix + sfx)
+        paths[f"wires_{wire}"] = launches["nuc_scores"]
+        msgs.append(f"{wire} two passes {wall:.2f} s = "
+                    f"{run5['windows'] / wall:.1f} windows/s, {steps} K2 launches, ten "
+                    "files equal to phase 5")
+    return "; ".join(msgs), paths
+
+
+def _wires_direct(data: dict, run5: dict) -> str:
+    """conv="direct" at full width on phase 5's dataset against phase 5,
+    and the route's norm on a production batch against float64."""
+    import numpy as np
+    import torch
+
+    from nucleoatac_torch.config import RunConfig, WindowParams
+    from nucleoatac_torch.core.vmat import VMat
+    from nucleoatac_torch.models.pipeline import run_pipeline
+    from nucleoatac_torch.ops import nuc_scores as k2
+    from nucleoatac_torch.ops.biasmat import bias_mat_batch
+    from nucleoatac_torch.ops.xcorr import (
+        build_kernels,
+        finish_scores,
+        nuc_conv_outputs_direct,
+        pad_valid,
+    )
+    from nucleoatac_torch.parity import compare_runs
+
+    cfg = RunConfig(window=WindowParams(conv="direct"))
+    prefix = os.path.join(data["dir"], "direct")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_pipeline(data["bam"], data["bed"], prefix, fasta_path=data["fasta"],
+                       cfg=cfg, write_plots=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if res.engine.steps != run5["steps"] or launches != {"diag_xcorr": 0, "nuc_scores": 0}:
+        raise AssertionError(f"direct: launches {launches} for {res.engine.steps} batches")
+    tol = cfg.nuc.exact_tol + max(run5["max_qstep"], res.nuc_stage.max_qstep)
+    stats = compare_runs(run5["prefix"], prefix, tol)
+    sig = {k.split(" ")[0]: v for k, v in stats.items() if k.endswith("max_abs_diff")}
+    # the route's norm on one production batch against float64
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    W = cfg.window.width(cfg.occ, cfg.vmat)
+    halo = cfg.window.halo(cfg.occ, cfg.vmat)
+    mat, logb = _synthetic_batch(dev, cfg.window.batch, W, rng)
+    q = rng.random(cfg.vmat.upper - cfg.vmat.lower)
+    q = torch.as_tensor((q / q.sum()).astype(np.float32), device=dev)
+    b0 = bias_mat_batch(logb, q, cfg.vmat.lower, cfg.vmat.upper, halo, W - halo)
+    fmat = mat[:, cfg.vmat.lower - cfg.sizes.lower:]
+    fk, bk = (torch.as_tensor(t, device=dev)
+              for t in build_kernels(VMat.default().mat, cfg.nuc.v_floor))
+    K = fk.shape[2]
+
+    def direct_norm():
+        fo, bo = nuc_conv_outputs_direct(fmat, b0, fk, bk)
+        return finish_scores(pad_valid(fo, W, K), pad_valid(bo, W, K),
+                             cfg.nuc.var_floor).norm
+
+    ref64 = k2.nuc_scores_plain(fmat.double(), b0.double(),
+                                *_template_tables(dev, torch.float64),
+                                cfg.nuc.var_floor)[:, 0]
+    err = float((direct_norm().double() - ref64).abs().max())
+    if err > cfg.nuc.exact_tol:
+        raise AssertionError(f"direct route max|norm - f64| {err:.3e} > nuc.exact_tol")
+    tabs = _template_tables(dev)
+    ms = cuda_ms(direct_norm)
+    k2_ms = cuda_ms(lambda: k2.nuc_scores(fmat, b0, *tabs, cfg.nuc.var_floor))
+    return (f"direct (two conv1d, cuDNN, TF32 off): run {wall:.2f} s = "
+            f"{run5['windows'] / wall:.1f} windows/s, no kernel launch, "
+            f"{res.engine.steps} batches; against phase 5: "
+            f"{sum(1 for k in stats if 'max_abs_diff' not in k)} files row-equal, signal "
+            f"max|direct - K2 route| {sig} (bar exact_tol + step = {tol:.3e}); max|norm-f64| "
+            f"{err:.3e} on a production batch; {ms:.4f} ms per batch (convolutions + "
+            f"epilogue) against K2's {k2_ms:.4f} ms")
+
+
+def _wires_small() -> tuple:
+    """Every wire at make_example size on the card, each xcorr kernel route,
+    against the CPU run on the same wire; the packed wire again at
+    --upper 300 on the long-fragment example."""
+    import dataclasses
+
+    from nucleoatac_torch.config import RunConfig, SizesParams, WindowParams
+    from nucleoatac_torch.models.pipeline import run_pipeline
+    from nucleoatac_torch.parity import compare_runs
+
+    base = RunConfig(window=WindowParams(core=256, batch=4))
+    cases = [(w, 251) for w in ("delta", "delta12", "frags", "dense", "packed")]
+    cases.append(("packed", 300))
+    paths = {"nuc_scores": {}, "diag_xcorr": {}}
+    worst = {}
+    with tempfile.TemporaryDirectory() as d:
+        os.makedirs(os.path.join(d, "long"))
+        exs = {251: make_example(d), 300: make_long_example(os.path.join(d, "long"))}
+        for wire, upper in cases:
+            ex, name = exs[upper], f"{wire}_upper{upper}" if upper != 251 else wire
+            out = {}
+            for dev, conv in (("cpu", "diag"), ("cuda", "diag"), ("cuda", "diag_pallas")):
+                c = dataclasses.replace(base, sizes=SizesParams(upper=upper),
+                                        window=dataclasses.replace(
+                                            base.window, transfer=wire, conv=conv))
+                prefix = os.path.join(d, f"{name}_{dev}_{conv}")
+                reset_launches()
+                res = run_pipeline(ex["bam"], ex["bed"], prefix, fasta_path=ex["fasta"],
+                                   cfg=c, write_plots=False, device=dev)
+                got, steps = read_launches(), res.engine.steps
+                if dev == "cuda":
+                    kernel, per = (("nuc_scores", 1) if conv == "diag" else ("diag_xcorr", 2))
+                    want = {"nuc_scores": 0, "diag_xcorr": 0, kernel: per * steps}
+                    if steps == 0 or got != want:
+                        raise AssertionError(f"{name} {conv}: launches {got} for {steps}")
+                    paths[kernel][f"wires_small_{name}"] = got[kernel]
+                out[(dev, conv)] = (prefix, res.nuc_stage.max_qstep)
+            # each device rounds its own f32 norm to its own u16 level
+            cpu, q_cpu = out[("cpu", "diag")]
+            for conv in ("diag", "diag_pallas"):
+                prefix, q = out[("cuda", conv)]
+                stats = compare_runs(prefix, cpu, base.nuc.exact_tol + max(q, q_cpu))
+                worst[f"{name} {conv}"] = max(
+                    v for k, v in stats.items() if k.endswith("max_abs_diff"))
+    msg = ("make_example size, cuda (K2 and K1 routes) against cpu, signal "
+           "max|cuda-cpu| " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return msg, paths
+
+
+def phase_wires(data: dict, run5: dict) -> dict:
+    """The wires beside pool and the direct route, on the card. Returns
+    each kernel's launches on each path."""
+    msgs, paths = [], {"nuc_scores": {}, "diag_xcorr": {}}
+    msg, p = _wires_upper500(data)
+    msgs.append(msg)
+    paths["nuc_scores"]["wires_upper500_packed"] = p["nuc_scores"]
+    msg, p = _wires_full(data, run5)
+    msgs.append(msg)
+    paths["nuc_scores"].update(p)
+    msgs.append(_wires_direct(data, run5))
+    msg, p = _wires_small()
+    msgs.append(msg)
+    for k in paths:
+        paths[k].update(p[k])
+    phase("wires", "; ".join(msgs) + f" on {smi()}")
+    return paths
 
 
 def phase_resume_bias() -> None:
@@ -899,7 +1114,7 @@ def phase_hosts(data: dict, run5: dict) -> dict:
     from nucleoatac_torch.models.data import tile_chunks
     from nucleoatac_torch.cli.nucleoatac import main as nucleoatac
     from nucleoatac_torch.parallel.distributed import host_tile_slice
-    from nucleoatac_torch.parity import RUN_SUFFIXES, read_rows
+    from nucleoatac_torch.parity import RUN_SUFFIXES
 
     cfg = RunConfig()
     prefix = os.path.join(data["dir"], "hosts")
@@ -934,13 +1149,7 @@ def phase_hosts(data: dict, run5: dict) -> dict:
         raise AssertionError(f"hosts: launches {launches} for batches {batches}")
     if len(reps[0]["finalize"]) != 1 or reps[1]["finalize"]:
         raise AssertionError("hosts: rank 0 alone must finalize")
-    rows = 0
-    for sfx in RUN_SUFFIXES:
-        a, b = read_rows(run5["prefix"] + sfx), read_rows(prefix + sfx)
-        if a != b or not a:
-            raise AssertionError(f"hosts {sfx}: rows differ from phase 5 "
-                                 f"({len(a)} vs {len(b)} rows)")
-        rows += len(a)
+    rows = sum(same_rows(run5["prefix"] + sfx, prefix + sfx) for sfx in RUN_SUFFIXES)
     if not (np.loadtxt(prefix + ".nuc_dist.txt") == np.loadtxt(run5["prefix"] + ".nuc_dist.txt")).all():
         raise AssertionError("hosts: nuc_dist differs from phase 5")
     if any(".part" in f for f in os.listdir(data["dir"])):
@@ -1125,6 +1334,7 @@ def main() -> int:
         phase_parity()
         stages_k2 = phase_stages(data, run5)
         k1_launches = phase_conv(data, run5)
+        wires = phase_wires(data, run5)
         phase_resume_bias()
         phase_pyatac(data)
         hosts = phase_hosts(data, run5)
@@ -1138,8 +1348,10 @@ def main() -> int:
                 "diag_xcorr": k1_launches}
     by_path = {
         "nuc_scores": {"run": launches["nuc_scores"], "stages": stages_k2,
-                       "hosts": hosts["nuc_scores"], "nonexact": nonexact["nuc_scores"]},
-        "diag_xcorr": {"conv": k1_launches, "nonexact_diag_pallas": nonexact["diag_xcorr"]},
+                       "hosts": hosts["nuc_scores"], "nonexact": nonexact["nuc_scores"],
+                       **wires["nuc_scores"]},
+        "diag_xcorr": {"conv": k1_launches, "nonexact_diag_pallas": nonexact["diag_xcorr"],
+                       **wires["diag_xcorr"]},
     }
     for rec in KERNEL_RECORDS:
         rec["launches"] = launches[rec["name"]]

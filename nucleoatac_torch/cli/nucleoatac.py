@@ -4,9 +4,11 @@ Counterpart of nucleoatac_tpu/cli/nucleoatac.py with the same subcommands
 and flags, except:
   * ``--device {cuda,cpu}`` (default cuda) replaces ``--platform``; cuda
     without a card is an error, never a silent CPU run;
-  * ``--conv`` takes diag (the K2 kernel) or diag_pallas (two K1 launches);
-  * ``--transfer`` takes pool or delta12, and ``--upper`` > 255 (where the
-    reference falls back to the packed wire) is an error;
+  * ``--conv`` diag runs the K2 kernel, diag_pallas two K1 launches, and
+    direct two full-float32 ``conv1d`` calls;
+  * ``--transfer delta12`` and ``delta`` run the two passes, where the
+    reference runs its fused pass (the same outputs; on the H100 the fused
+    pass is the slower of the two);
   * ``--fetch-threads`` is gone (a relay setting);
   * ``--profile DIR`` writes a torch.profiler trace (TensorBoard format);
   * ``--num_hosts``/``--host_id`` run one host's shard on its device
@@ -29,8 +31,7 @@ from nucleoatac_torch.config import (
     WindowParams,
 )
 from nucleoatac_torch.models.engine import CONV_ROUTES
-
-TRANSFERS = ("pool", "delta12")
+from nucleoatac_torch.models.occ import WIRES
 
 
 def _common(p: argparse.ArgumentParser, fasta_required: bool = False) -> None:
@@ -73,13 +74,15 @@ def _tune(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--conv", default=WindowParams.conv, choices=list(CONV_ROUTES),
-        help="nuc template xcorr: diag (the nuc_scores kernel) or "
-             "diag_pallas (two diag_xcorr launches, then the epilogue)",
+        help="nuc template xcorr: diag (the nuc_scores kernel), "
+             "diag_pallas (two diag_xcorr launches, then the epilogue) or "
+             "direct (two float32 conv1d calls, then the epilogue)",
     )
     p.add_argument(
-        "--transfer", default=WindowParams.transfer, choices=list(TRANSFERS),
-        help="host->device wire format: pool (fused run) or delta12 "
-             "(two-pass run; the standalone stages always use it)",
+        "--transfer", default=WindowParams.transfer, choices=list(WIRES),
+        help="host->device wire format: pool runs the fused pass, the "
+             "others the two passes; the standalone stages take pool as "
+             "delta12. Only packed, frags and dense carry sizes above 255",
     )
     p.add_argument(
         "--finish-threads", type=int, default=WindowParams.finish_threads,
@@ -91,12 +94,14 @@ def _tune(p: argparse.ArgumentParser) -> None:
 def build_config(args: argparse.Namespace) -> RunConfig:
     cfg = RunConfig()
     transfer = getattr(args, "transfer", cfg.window.transfer)
-    if args.upper > 255:
-        raise SystemExit(
-            f"nucleoatac-torch: --upper {args.upper} > 255 does not fit the "
-            f"uint8 size field of the '{transfer}' wire, and the packed wire "
-            "is not ported; use --upper 255 or less"
+    if transfer in ("delta", "delta12", "pool") and args.upper > 255:
+        print(
+            f"WARNING: --upper {args.upper} > 255 is incompatible with the "
+            f"'{transfer}' wire format (uint8 size field); falling back "
+            "to 'packed'",
+            file=sys.stderr,
         )
+        transfer = "packed"
     return dataclasses.replace(
         cfg,
         ingest=dataclasses.replace(cfg.ingest, atac=not getattr(args, "not_atac", False)),

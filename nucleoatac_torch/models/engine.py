@@ -1,28 +1,33 @@
 """TorchEngine: the batched window chains of the occ and nuc stages.
 
 Counterpart of nucleoatac_tpu/models/engine.py :: DeviceEngine for every
-``nucleoatac`` command, in exact and non-exact mode:
+``nucleoatac`` command and flag value, in exact and non-exact mode:
 
-  raster (wire v7 pool or wire v6 delta12 records)
+  raster (wire v7 pool, wire v6 delta12, 2-byte delta pairs, packed
+  words, fragment lists, or a host-rasterized int16 matrix)
     -> occupancy LL -> wire-v8 occ bytes (exact) or wire-v2 (non-exact)
   log bias (PWM over sequence codes, or an uploaded f32 row) -> B0
     -> template xcorr -> margin-extended norm -> u16 bytes  (exact nuc)
                       -> f32 [B, 5, W] score tracks         (non-exact nuc)
 
 The fused pass (run_step_pool*) packs both branches into one uint8 row per
-window; the standalone stages call one branch each (occ_step_delta12_p2,
-nuc_step_delta12_*_m16) through the same programs, so both paths quantize
-the same f32 norm. Non-exact mode (occ.exact / nuc.exact False) has no
-host refinisher: occ_step_delta12_c3 ships full CI indices and
-nuc_step_delta12_*_c ships the f32 signal, lr and fuzz tracks the host
-selection reads.
+window. The two-pass stages (models/occ.py, models/nuc.py) compose one
+branch each from the same stage functions: a wire's raster, then
+_occ_packed2 (wire v8) or _nucm16 (u16 norm) in exact mode, so both paths
+quantize the same f32 norm. Non-exact mode (occ.exact / nuc.exact False)
+has no host refinisher: _occ_packed3 ships full CI indices and _nuc5 the
+f32 signal, lr and fuzz tracks the host selection reads. The delta12
+compositions keep the reference's entry-point names (occ_step_delta12_*,
+nuc_step_delta12_*).
 
 The template xcorr follows ``cfg.window.conv``: "diag" runs the K2 kernel
 (ops/nuc_scores.py, xcorr and epilogue in one launch); "diag_pallas" runs
 two K1 launches (ops/diag_xcorr.py) and the epilogue as torch ops, as the
-reference's Pallas route does. On the CPU each kernel wrapper runs its
-plain version. Tables live as tensors on an explicit ``torch.device``;
-the host decoders are the reference's.
+reference's Pallas route does; "direct" runs the eight sums as two
+full-float32 ``conv1d`` calls (ops/xcorr.py :: conv_stack_direct), where
+the reference runs two XLA convolutions, then the same epilogue. On the
+CPU each kernel wrapper runs its plain version. Tables live as tensors on
+an explicit ``torch.device``; the host decoders are the reference's.
 """
 from __future__ import annotations
 
@@ -49,15 +54,17 @@ from nucleoatac_torch.ops.pwmseq import (
     unpack_nibble_codes,
 )
 from nucleoatac_torch.ops.rasterize import (
+    rasterize_batch,
     rasterize_delta12_batch,
+    rasterize_delta_batch,
+    rasterize_packed_batch,
     rasterize_pool_batch,
 )
 from nucleoatac_torch.ops.smooth import gauss_smooth_batch
-from nucleoatac_torch.ops.xcorr import finish_scores, pad_valid
+from nucleoatac_torch.ops.xcorr import finish_scores, nuc_conv_outputs_direct, pad_valid
 
-# template-xcorr routes by cfg.window.conv; the reference's "direct" (two
-# XLA convolutions, kept there for comparison) is not ported
-CONV_ROUTES = ("diag", "diag_pallas")
+# template-xcorr routes by cfg.window.conv
+CONV_ROUTES = ("diag", "diag_pallas", "direct")
 
 
 class TorchEngine:
@@ -77,12 +84,6 @@ class TorchEngine:
         ``conv`` (default ``cfg.window.conv``) picks the xcorr route."""
         self.cfg = cfg
         self.conv = conv or cfg.window.conv
-        if self.conv == "direct":
-            raise NotImplementedError(
-                "conv='direct' (two XLA convolutions in the reference, kept "
-                "there for comparison) is not ported (ROADMAP.md); use "
-                "'diag' or 'diag_pallas'"
-            )
         if self.conv not in CONV_ROUTES:
             raise ValueError(f"conv={self.conv!r}; expected one of {CONV_ROUTES}")
         self.device = resolve_device(device)
@@ -105,7 +106,7 @@ class TorchEngine:
         self.core_lo = self.halo
         self.core_hi = self.width - self.halo
         self.core = cfg.window.core
-        self.steps = 0  # nuc batches dispatched (every _nucm / _nuc5 call)
+        self.steps = 0  # nuc batches dispatched (every _scores call)
 
     def smooth_margin(self) -> int:
         """Columns of norm needed on each side of the core to reproduce the
@@ -131,13 +132,41 @@ class TorchEngine:
             self.cfg.sizes.upper, self.width,
         )
 
-    def _logbias_2bit(self, packed2, esc):
-        codes = unpack_2bit_codes(packed2, self.seq_codes_width(), esc)
+    def _raster_delta(self, db):
+        """2-byte (delta, size) pairs [B, F, 2]."""
+        return rasterize_delta_batch(
+            db, self.cfg.sizes.lower, self.cfg.sizes.upper, self.width
+        )
+
+    def _raster_packed(self, packed):
+        """``(size << 16) | mid`` words [B, F]: the wire of any size range."""
+        return rasterize_packed_batch(
+            packed, self.cfg.sizes.lower, self.cfg.sizes.upper, self.width
+        )
+
+    def _raster_frags(self, mids, sizes, valid):
+        """Separate [B, F] midpoint, size and validity arrays."""
+        return rasterize_batch(
+            mids, sizes, valid, self.cfg.sizes.lower, self.cfg.sizes.upper,
+            self.width,
+        )
+
+    @staticmethod
+    def _dense(mat):
+        """Host-rasterized int16 counts [B, S, W], cast to f32 on the
+        device (exact: counts are integers)."""
+        return mat.to(torch.float32)
+
+    def _logbias_seq(self, codes):
+        """Plain uint8 base codes [B, W + L - 1] (the packed wire's
+        sequence upload)."""
         return pwm_bias_batch(codes, self.tables["pwm_log_ratio"])
 
+    def _logbias_2bit(self, packed2, esc):
+        return self._logbias_seq(unpack_2bit_codes(packed2, self.seq_codes_width(), esc))
+
     def _logbias_nib(self, packed_codes):
-        codes = unpack_nibble_codes(packed_codes, self.seq_codes_width())
-        return pwm_bias_batch(codes, self.tables["pwm_log_ratio"])
+        return self._logbias_seq(unpack_nibble_codes(packed_codes, self.seq_codes_width()))
 
     def _occ_packed2(self, mat):
         """Wire v8 occ bytes: uint8 [B, 2*core + ceil(core/4)]."""
@@ -161,51 +190,45 @@ class TorchEngine:
             self.cfg.vmat.upper, self.core_lo, self.core_hi,
         )
 
-    def _nucm(self, mat, log_bias):
-        """f32 [B, core + 2m] norm with smooth margins. The nuc-range rows
-        of the raster go to the kernels as a batch-strided view (no
-        copy)."""
+    def _scores(self, mat, log_bias):
+        """(norm, signal, lr, fuzz), each f32 [B, W], on the configured
+        xcorr route; every route gives 0 where n = 0. The nuc-range rows of
+        the raster go to the kernels as a batch-strided view (no copy).
+        Counts one nuc batch."""
         self.steps += 1
         vlo = self.cfg.vmat.lower - self.cfg.sizes.lower
         vup = self.cfg.vmat.upper - self.cfg.sizes.lower
         fmat, b0 = mat[:, vlo:vup], self._bias(log_bias)
         tabs = self.tables["_diag_kernels"]
-        if self.conv == "diag_pallas":
-            # the reference's _convs_impl + _finish_impl: valid outputs
-            # padded dyad-aligned to W, then the elementwise epilogue
+        if self.conv == "diag":  # one K2 launch: xcorr and epilogue
+            k2 = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)
+            return k2[:, 0], k2[:, 1], k2[:, 2], k2[:, 3]
+        if self.conv == "diag_pallas":  # two K1 launches
             fo, bo = nuc_conv_outputs(fmat, b0, *tabs)
-            K = tabs[0].shape[1]
-            norm = finish_scores(
-                pad_valid(fo, self.width, K), pad_valid(bo, self.width, K),
-                self.cfg.nuc.var_floor,
-            ).norm
-        else:
-            norm = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)[:, 0]
+        else:  # "direct": two conv1d calls over the build_kernels stacks
+            fo, bo = nuc_conv_outputs_direct(
+                fmat, b0, self.tables["f_kernels"], self.tables["b_kernels"]
+            )
+        # the reference's _convs_impl + _finish_impl: valid outputs padded
+        # dyad-aligned to W, then the elementwise epilogue
+        K = tabs[0].shape[1]
+        sc = finish_scores(
+            pad_valid(fo, self.width, K), pad_valid(bo, self.width, K),
+            self.cfg.nuc.var_floor,
+        )
+        return sc.norm, sc.signal, sc.lr, sc.fuzz
+
+    def _nucm(self, mat, log_bias):
+        """f32 [B, core + 2m] norm with smooth margins."""
+        norm = self._scores(mat, log_bias)[0]
         m = self.smooth_margin()
         return norm[:, self.core_lo - m : self.core_lo + self.core + m]
 
     def _nuc5(self, mat, log_bias):
         """f32 [B, 5, W] (norm, norm_smooth, signal, lr, fuzz) over the
-        whole window (non-exact mode). "diag": one K2 launch, its channels
-        reordered and norm smoothed — the reference's use_pallas form;
-        "diag_pallas": two K1 launches and the epilogue, then the smooth.
-        Both routes give norm = 0 where n = 0, before the smooth."""
-        self.steps += 1
-        vlo = self.cfg.vmat.lower - self.cfg.sizes.lower
-        vup = self.cfg.vmat.upper - self.cfg.sizes.lower
-        fmat, b0 = mat[:, vlo:vup], self._bias(log_bias)
-        tabs = self.tables["_diag_kernels"]
-        if self.conv == "diag_pallas":
-            fo, bo = nuc_conv_outputs(fmat, b0, *tabs)
-            K = tabs[0].shape[1]
-            sc = finish_scores(
-                pad_valid(fo, self.width, K), pad_valid(bo, self.width, K),
-                self.cfg.nuc.var_floor,
-            )
-            norm, signal, lr, fuzz = sc.norm, sc.signal, sc.lr, sc.fuzz
-        else:
-            k2 = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)
-            norm, signal, lr, fuzz = (k2[:, i] for i in range(4))
+        whole window (non-exact mode); under "diag" K2's channels
+        reordered, the reference's use_pallas form."""
+        norm, signal, lr, fuzz = self._scores(mat, log_bias)
         smooth = gauss_smooth_batch(norm, self.tables["smooth_kernel"])
         return torch.stack([norm, smooth, signal, lr, fuzz], dim=1)
 

@@ -4,9 +4,11 @@ selection.
 Counterpart of nucleoatac_tpu/models/nuc.py. The host logic is the
 reference's (sequence-code rows, bias tracks, host smoothing,
 f64-certified selection). The device scores arrive through the fused
-pass (models/fused.py) or through ``NucStage.run``, which uploads wire
-v6 delta12 records with nibble sequence codes, or with f32 log-bias rows
-when a bias track replaces the PWM. With nuc.exact False there is no
+pass (models/fused.py) or through ``NucStage.run``, which uploads the
+configured wire (pool falls back to delta12 records) with sequence codes
+for the on-device PWM (nibble-packed, or plain uint8 on the packed wire),
+or with f32 log-bias rows when a bias track replaces the PWM and on the
+frags and dense wires. With nuc.exact False there is no
 refinisher: ``NucStage.run`` downloads the f32 [B, 5, W] score tracks and
 selects on them (``_select_legacy``).
 """
@@ -25,13 +27,12 @@ from nucleoatac_torch.io.fasta import FastaFile
 from nucleoatac_torch.io.tabix import TabixReader, TabixWriter
 from nucleoatac_torch.models.data import (
     ChunkAssembler,
-    make_delta12_batches,
     pack_nibble_codes,
     tile_chunks,
 )
 from nucleoatac_torch.utils.numerics import greedy_select_fast, local_max_candidates_fast
 from nucleoatac_torch.device import to_device
-from nucleoatac_torch.models.occ import _pipelined, check_transfer
+from nucleoatac_torch.models.occ import _pipelined, stage_wire, wire_batches
 
 
 @dataclass
@@ -267,7 +268,6 @@ class NucStage:
         """occ_lookup(chunk_id, chunk, genomic_pos) -> (occ, lower, upper)."""
         cfg = self.cfg
         eng = self.engine
-        check_transfer(cfg)
         res = NucStageResult()
         writers = open_writers(out_prefix)
         tiles = tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)
@@ -307,28 +307,9 @@ class NucStage:
             return logb
 
         seq_provider = SeqCodesProvider(self.fasta, chunks, eng, cfg.window.batch)
-        dev = eng.device
-        # exact: u16 norm with smooth margins (wire v5); non-exact: f32
-        # [B, 5, W] tracks
-        if exact:
-            seq_step, bias_step = eng.nuc_step_delta12_seq_m16, eng.nuc_step_delta12_m16
-        else:
-            seq_step, bias_step = eng.nuc_step_delta12_seq_c, eng.nuc_step_delta12_c
-        # a precomputed bias track forces the log-bias upload (the on-device
-        # PWM would recompute bias from sequence)
-        if eng.pwm is not None and self.bias_source is None:
-
-            def dispatch(batch):
-                nib = pack_nibble_codes(seq_provider.rows(batch.meta))
-                return seq_step(to_device(batch.buf, dev), to_device(nib, dev))
-        else:
-
-            def dispatch(batch):
-                return bias_step(
-                    to_device(batch.buf, dev), to_device(batch_log_bias(batch), dev)
-                )
-
-        batches = make_delta12_batches(frags, tiles, eng.width, cfg.window.batch)
+        batches, dispatch = self._batches(
+            frags, tiles, seq_provider.rows, batch_log_bias
+        )
         for batch, out in _pipelined(batches, dispatch):
             if exact:
                 # wire v5 decode: the smoothed track is recomputed on the
@@ -357,6 +338,44 @@ class NucStage:
         for w in writers.values():
             w.close()
         return res
+
+    def _batches(self, frags: BamFragments, tiles, seq_rows, log_bias_rows):
+        """(batches, dispatch) of ``run`` on the stages' wire
+        (occ.stage_wire), as the reference's NucStage.run picks them. Exact
+        mode downloads the u16 norm with smooth margins (wire v5), non-exact
+        mode the f32 [B, 5, W] tracks. ``seq_rows(metas)`` gives the uint8
+        sequence-code rows, ``log_bias_rows(batch)`` the f32 log-bias rows.
+        A precomputed bias track forces the log-bias upload (the on-device
+        PWM would recompute bias from sequence); so do the frags and dense
+        wires."""
+        cfg, eng = self.cfg, self.engine
+        finish = eng._nucm16 if cfg.nuc.exact else eng._nuc5
+
+        def up(a):
+            return to_device(a, eng.device)
+
+        def nib(b):  # the delta wires' sequence upload
+            return eng._logbias_nib(up(pack_nibble_codes(seq_rows(b.meta))))
+
+        def plain(b):  # the packed wire's: plain uint8 codes
+            return eng._logbias_seq(up(seq_rows(b.meta)))
+
+        def rows(b):
+            return up(log_bias_rows(b))
+
+        wire = stage_wire(cfg)
+        raster = {
+            "delta12": lambda b: eng._raster_delta12(up(b.buf)),
+            "delta": lambda b: eng._raster_delta(up(b.delta)),
+            "packed": lambda b: eng._raster_packed(up(b.packed)),
+            "frags": lambda b: eng._raster_frags(up(b.mids), up(b.sizes), up(b.valid)),
+            "dense": lambda b: eng._dense(up(b.mats)),
+        }[wire]
+        bias = {"delta12": nib, "delta": nib, "packed": plain}.get(wire, rows)
+        if eng.pwm is None or self.bias_source is not None:
+            bias = rows
+        batches = wire_batches(cfg, wire, frags, tiles, eng.width)
+        return batches, lambda b: finish(raster(b), bias(b))
 
     def _finish_chunk(self, cid, chunk, tracks, occ_lookup, writers, res) -> None:
         computed = self.compute_chunk(

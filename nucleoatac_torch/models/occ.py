@@ -3,9 +3,11 @@ f64-exact finishing, occ peaks, and the pipelined batch loop.
 
 Counterpart of nucleoatac_tpu/models/occ.py. The host logic is the
 reference's; the device loop (_pipelined) is rewritten for CUDA streams.
-``OccStage.run`` (the standalone and two-pass occ stage) uploads wire v6
-delta12 records and downloads wire v8 occ bytes in exact mode, or wire v2
-(full CI indices, no f64 refinisher) when occ.exact is False.
+``OccStage.run`` (the standalone and two-pass occ stage) uploads the
+configured wire (pool falls back to per-window delta12 records; delta,
+packed, frags and dense as in the reference) and downloads wire v8 occ
+bytes in exact mode, or wire v2 (full CI indices, no f64 refinisher) when
+occ.exact is False.
 """
 from __future__ import annotations
 
@@ -24,7 +26,11 @@ from nucleoatac_torch.io.bam import BamFragments
 from nucleoatac_torch.io.tabix import TabixWriter
 from nucleoatac_torch.models.data import (
     ChunkAssembler,
+    make_batches,
     make_delta12_batches,
+    make_delta_batches,
+    make_dense_batches,
+    make_packed_batches,
     tile_chunks,
 )
 from nucleoatac_torch.utils.numerics import greedy_select_fast, local_max_candidates_fast
@@ -38,6 +44,30 @@ class OccPeak:
     occ: float
     lower: float
     upper: float
+
+
+# host->device wire formats (cfg.window.transfer), as the reference's
+WIRES = ("pool", "delta12", "delta", "packed", "frags", "dense")
+
+
+def stage_wire(cfg: RunConfig) -> str:
+    """The wire the two-pass stages upload: the configured one, except that
+    the pool wire (a fused-pass format) falls back to per-window delta12
+    records, the same device programs after the raster."""
+    transfer = cfg.window.transfer
+    if transfer not in WIRES:
+        raise ValueError(f"unknown transfer {transfer!r}; expected one of {WIRES}")
+    return "delta12" if transfer == "pool" else transfer
+
+
+def wire_batches(cfg: RunConfig, wire: str, frags: BamFragments, tiles, width: int):
+    """The host batches of ``wire`` over ``tiles`` (models/data.py)."""
+    B = cfg.window.batch
+    if wire == "dense":  # int16 counts rasterized on the host
+        return make_dense_batches(frags, tiles, width, B, cfg.sizes.lower, cfg.sizes.upper)
+    return {"delta12": make_delta12_batches, "delta": make_delta_batches,
+            "packed": make_packed_batches, "frags": make_batches}[wire](
+        frags, tiles, width, B)
 
 
 @dataclass
@@ -134,18 +164,6 @@ def open_writers(prefix: Optional[str]) -> Dict[str, TabixWriter]:
     }
 
 
-def check_transfer(cfg: RunConfig) -> None:
-    """Raise unless the configured wire is ported. The standalone occ/nuc
-    stages upload per-window delta12 records under either value: the pool
-    wire is a fused-pass format, and the device programs after the raster
-    are the same."""
-    if cfg.window.transfer not in ("pool", "delta12"):
-        raise NotImplementedError(
-            f"transfer={cfg.window.transfer!r} is not ported (ROADMAP.md); "
-            "nucleoatac_torch takes 'pool' or 'delta12'"
-        )
-
-
 class OccStage:
     """The `occ` stage (run) and the per-chunk occ finishing (f64
     refinish, spot check, peaks, payloads) it shares with the fused run."""
@@ -186,7 +204,6 @@ class OccStage:
         cfg = self.cfg
         eng = self.engine
         exact = cfg.occ.exact
-        check_transfer(cfg)
         result = OccStageResult(mix=mix, fragmentsizes=fragmentsizes, chunks=chunks)
         writers = open_writers(out_prefix)
         tiles = tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)
@@ -198,12 +215,7 @@ class OccStage:
         # whose overflow clears the certified bit and routes the position
         # through the f64 refinisher; non-exact, wire v2: full CI indices
         # (no refinisher to fall back on)
-        step = eng.occ_step_delta12_p2 if exact else eng.occ_step_delta12_c3
-
-        def dispatch(batch):
-            return step(to_device(batch.buf, eng.device))
-
-        batches = make_delta12_batches(frags, tiles, eng.width, cfg.window.batch)
+        batches, dispatch = self._batches(frags, tiles)
         # occupancy values live on the discrete alpha grid; the wire carries
         # grid INDICES, decoded here with the f64 grid — lossless
         grid64 = mix.alpha_grid(cfg.occ)
@@ -231,6 +243,32 @@ class OccStage:
         for w in writers.values():
             w.close()
         return result
+
+    def _batches(self, frags: BamFragments, tiles):
+        """(batches, dispatch) of ``run`` on the stages' wire
+        (``stage_wire``), as the reference's OccStage.run picks them. The
+        frags wire packs its lists into ``(size << 16) | mid`` words on the
+        host."""
+        cfg, eng = self.cfg, self.engine
+        finish = eng._occ_packed2 if cfg.occ.exact else eng._occ_packed3
+
+        def up(a):
+            return to_device(a, eng.device)
+
+        def frags_words(b):
+            s = np.where(b.valid, b.sizes, 0).astype(np.int32)
+            m = np.where(b.valid, b.mids, 0).astype(np.int32)
+            return eng._raster_packed(up((s << 16) | m))
+
+        wire = stage_wire(cfg)
+        raster = {
+            "delta12": lambda b: eng._raster_delta12(up(b.buf)),
+            "delta": lambda b: eng._raster_delta(up(b.delta)),
+            "packed": lambda b: eng._raster_packed(up(b.packed)),
+            "frags": frags_words,
+            "dense": lambda b: eng._dense(up(b.mats)),  # int16
+        }[wire]
+        return wire_batches(cfg, wire, frags, tiles, eng.width), lambda b: finish(raster(b))
 
     def _exact_refinish(self, chunk: Chunk, tracks, frags: BamFragments) -> None:
         """Re-finish uncertified positions in float64 (DESIGN.md §4).

@@ -2,10 +2,10 @@
 
 Counterpart of nucleoatac_tpu/models/pipeline.py :: run_pipeline:
 ingest, mixture fit, the occ and nuc stages on ``device`` — the fused pass
-(models/fused.py) when it applies, else the two-pass stages
-(``--bias_track``, ``transfer="delta12"``) — then merge and nfr, writing
-every reference output file. ``resume`` rebuilds the occ stage from its
-files and runs the nuc stage alone.
+(models/fused.py) on the pool wire, else the two-pass stages
+(``--bias_track``, every other wire, non-exact mode) — then merge and nfr,
+writing every reference output file. ``resume`` rebuilds the occ stage from
+its files and runs the nuc stage alone.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """V-plot rasterization: fragment records -> [B, S, W] count matrices.
 
-Counterpart of nucleoatac_tpu/ops/rasterize.py for the fused pass's wire
-v7 pool format and the standalone stages' wire v6 per-window records. One
+Counterpart of nucleoatac_tpu/ops/rasterize.py for every upload wire: the
+wire v7 pool, wire v6 per-window 12-bit records, the 2-byte (delta, size)
+pairs, packed ``(size << 16) | mid`` words and plain fragment lists. One
 flattened scatter-add over [B*S*W] builds all window matrices at once; on
 the card ``index_add_`` accumulates with float32 atomics, which are exact
 for counts below 2^24, so the counts equal the reference's bit for bit.
@@ -9,6 +10,41 @@ for counts below 2^24, so the counts equal the reference's bit for bit.
 from __future__ import annotations
 
 import torch
+
+
+def unpack_fragments(packed: torch.Tensor):
+    """[B, F] int32 ``(size << 16) | mid`` words -> (mids, sizes, valid).
+    Sizes stay below 2^15, so a word is never negative and the shift never
+    sign-extends; size 0 marks padding."""
+    p = packed.long()
+    sizes = p >> 16
+    return p & 0xFFFF, sizes, sizes > 0
+
+
+def rasterize_packed_batch(
+    packed: torch.Tensor, lower: int, upper: int, width: int
+) -> torch.Tensor:
+    """[B, F] packed fragment words -> [B, upper-lower, width] f32 counts."""
+    mids, sizes, valid = unpack_fragments(packed)
+    return rasterize_batch(mids, sizes, valid, lower, upper, width)
+
+
+def unpack_delta_fragments(db: torch.Tensor):
+    """[B, F, 2] uint8 (delta, size) pairs -> (mids, sizes, valid).
+    Midpoints are the running sum of the deltas, accumulated in int64;
+    size 0 marks padding and the (255, 0) skip entries of gaps > 255 bp."""
+    s = db[..., 1].long()
+    return torch.cumsum(db[..., 0].long(), dim=1), s, s > 0
+
+
+def rasterize_delta_batch(
+    db: torch.Tensor, lower: int, upper: int, width: int
+) -> torch.Tensor:
+    """[B, F, 2] delta-coded fragments -> [B, upper-lower, width] f32
+    counts. The encoder saturates sizes at 255, so upper <= 255
+    (config.RunConfig refuses the delta wires otherwise)."""
+    mids, sizes, valid = unpack_delta_fragments(db)
+    return rasterize_batch(mids, sizes, valid, lower, upper, width)
 
 
 def _midpoints(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,10 @@ Plain PyTorch counterpart of nucleoatac_tpu/ops/xcorr.py. These are the
 plain versions of the two CUDA kernels (ops/diag_xcorr.py,
 ops/nuc_scores.py): the CPU path runs them, the kernel tests and
 chip_smoke.py compare the kernels against them, and on a CUDA tensor
-nothing on the main path calls them. Matmuls run in full float32
-(device.set_precision_flags); no cuDNN convolution is used.
+nothing on the main path calls them. The one library convolution is the
+``conv="direct"`` route (conv_stack_direct), which the reference also
+leaves to its compiler's convolution. Matmuls and convolutions run in
+full float32 (device.set_precision_flags).
 """
 from __future__ import annotations
 
@@ -58,9 +60,27 @@ def build_kernels_diag(vmat: np.ndarray, v_floor: float = 1e-5):
 
 
 def _conv_stack(x: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
-    """[B, S, W] (x) [C, S, K] -> [B, C, W-K+1] valid cross-correlation."""
+    """[B, S, W] (x) [C, S, K] -> [B, C, W-K+1] valid cross-correlation,
+    as one einsum over an unfold: the oracle of conv_stack_direct. It
+    materialises [B, S, W-K+1, K] (about 7.6 GB at [64, 146, 1536] x 147
+    taps), so it serves small inputs only."""
     K = kern.shape[2]
     return torch.einsum("bsjk,csk->bcj", x.unfold(2, K, 1), kern)
+
+
+def conv_stack_direct(x: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+    """[B, S, W] (x) [C, S, K] -> [B, C, W-K+1] valid cross-correlation as
+    one ``conv1d`` with S input and C output channels: the route
+    ``conv="direct"``, where the reference runs two XLA convolutions. In
+    full float32 (``device.set_precision_flags`` turns cuDNN's TF32 off)."""
+    return torch.nn.functional.conv1d(x, kern)
+
+
+def nuc_conv_outputs_direct(frag_mat, b0, f_kernels, b_kernels):
+    """(fo [B, 5, W-K+1], bo [B, 3, W-K+1]) as two direct convolutions
+    over the build_kernels stacks, in the channel order of
+    nuc_conv_outputs_diag."""
+    return conv_stack_direct(frag_mat, f_kernels), conv_stack_direct(b0, b_kernels)
 
 
 def conv_stack_diag(x: torch.Tensor, k2d: torch.Tensor) -> torch.Tensor:

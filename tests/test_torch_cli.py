@@ -2,8 +2,9 @@
 (CPU backend) on the synthetic example: the staged occ/nuc/merge/nfr
 commands, `run --resume` and `run --bias_track` meet the reference's
 output bar (nucleoatac_torch/parity.py) and recover the planted truth;
-vprocess round-trips; the flags map onto the config; what is not ported
-exits nonzero."""
+vprocess round-trips; the flags map onto the config, every --transfer and
+--conv value of the reference included; the reference's flags that have no
+meaning here (--platform, --fetch-threads, --device tpu) exit nonzero."""
 import gzip
 import os
 
@@ -169,8 +170,7 @@ def test_build_config_maps_device_conv_transfer(cmd):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--conv", "direct"], ["--transfer", "packed"], ["--device", "tpu"],
-    ["--platform", "cpu"], ["--fetch-threads", "2"],
+    ["--device", "tpu"], ["--platform", "cpu"], ["--fetch-threads", "2"],
 ])
 def test_cli_rejects_unported_choices(flag):
     with pytest.raises(SystemExit) as e:
@@ -178,10 +178,22 @@ def test_cli_rejects_unported_choices(flag):
     assert e.value.code == 2
 
 
-def test_upper_above_255_exits_with_error():
-    args = nucleoatac_parser().parse_args(["run", *BASE, "--upper", "300"])
-    with pytest.raises(SystemExit, match="--upper 300 > 255"):
-        build_config(args)
+@pytest.mark.parametrize("flag", [
+    ["--transfer", w] for w in ("pool", "delta12", "delta", "packed", "frags", "dense")
+] + [["--conv", c] for c in ("diag", "diag_pallas", "direct")])
+def test_cli_takes_every_reference_choice(flag):
+    """Every --transfer and --conv value of `nucleoatac` parses and reaches
+    the config."""
+    cfg = build_config(nucleoatac_parser().parse_args(["run", *BASE, *flag]))
+    field = "transfer" if flag[0] == "--transfer" else "conv"
+    assert getattr(cfg.window, field) == flag[1]
+
+
+def test_upper_above_255_falls_back_to_packed(capsys):
+    """The reference's behaviour: a warning, then the packed wire."""
+    cfg = build_config(nucleoatac_parser().parse_args(["run", *BASE, "--upper", "300"]))
+    assert (cfg.window.transfer, cfg.sizes.upper) == ("packed", 300)
+    assert "falling back to 'packed'" in capsys.readouterr().err
 
 
 def test_device_cuda_without_card_raises(tmp_path):

@@ -189,3 +189,32 @@ def test_u16_bytes_equal(rng, kind):
     want = np.asarray(DeviceEngine._u16_impl(jnp.asarray(x)))
     got = TorchEngine._u16(T(x)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------- peak calling (ops/peaks.py) -----------------------------
+@pytest.mark.parametrize("halfwin,sep,max_calls", [(60, 120, 8), (5, 9, 40)])
+def test_peaks_match_jax_and_mirror(rng, halfwin, sep, max_calls):
+    """local_max_batch and greedy_select_batch against the JAX package's
+    ops (equal outputs, invalid padding included) and the float64 mirror,
+    with plateaus and a mask to exercise the tie rules."""
+    from nucleoatac_tpu.ops import peaks as jpeaks
+    from nucleoatac_torch import mirror
+    from nucleoatac_torch.ops import peaks as tpeaks
+
+    B, W = 3, 500
+    x = rng.normal(0, 1, size=(B, W)).astype(np.float32)
+    x[:, 100:104] = 5.0
+    x[:, 300] = 6.0
+    mask = x > -0.5
+    cand = tpeaks.local_max_batch(T(x), halfwin, T(mask))
+    want_c = np.asarray(jpeaks.local_max_batch(jnp.asarray(x), halfwin, jnp.asarray(mask)))
+    np.testing.assert_array_equal(cand.numpy(), want_c)
+    sel = tpeaks.greedy_select_batch(T(x), cand, sep, max_calls)
+    want = jpeaks.greedy_select_batch(jnp.asarray(x), jnp.asarray(want_c), sep, max_calls)
+    np.testing.assert_array_equal(sel.positions.numpy(), np.asarray(want.positions))
+    np.testing.assert_array_equal(sel.valid.numpy(), np.asarray(want.valid))
+    for b in range(B):
+        cand_r = mirror.local_max_candidates(x[b].astype(np.float64), halfwin, mask[b])
+        np.testing.assert_array_equal(cand[b].numpy(), cand_r)
+        sel_r = mirror.greedy_select(x[b].astype(np.float64), cand_r, sep, max_calls)
+        assert sel.positions[b][sel.valid[b]].tolist() == sel_r

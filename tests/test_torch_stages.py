@@ -257,11 +257,15 @@ def test_conv_route_follows_config(example, batches, monkeypatch, conv, k1_calls
     assert eng.steps == len(d12)
 
 
-def test_conv_direct_raises(example):
+def test_conv_direct_builds_and_unknown_route_raises(example, batches):
+    """conv="direct" is a route of its own (no kernel launch, one engine
+    step per batch); a route the reference does not have is refused."""
     _, _, _, fits, _, _ = example
     fs, mix = fits["torch"]
-    with pytest.raises(NotImplementedError, match="direct"):
-        TorchEngine(TCFG, mix, fs, device="cpu", conv="direct")
+    eng = TorchEngine(TCFG, mix, fs, pwm=TPWM.default(), device="cpu", conv="direct")
+    b, nib = batches[0][0], batches[2][0]
+    assert eng.nuc_step_delta12_seq_m16(T(b.buf), T(nib)).dtype == torch.uint8
+    assert eng.steps == 1
     with pytest.raises(ValueError, match="conv"):
         TorchEngine(TCFG, mix, fs, device="cpu", conv="fft")
 
