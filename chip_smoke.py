@@ -27,6 +27,17 @@ Phases (one line each; any failure raises and the script exits nonzero):
   5. run      — nucleoatac_torch run_pipeline on the card with the default
                 RunConfig on synthetic data (1,000 peaks); K2 launches ==
                 nuc batches.
+  5b. devices — the one-process multi-device run: run_pipeline with the
+                default RunConfig on phase 5's dataset, each batch of 64
+                windows sharded over every visible card ("cuda"), or over
+                two shards of 32 on cuda:0 where the machine has one card:
+                all ten files byte-equal to phase 5's, K2 launches ==
+                shards x phase 5's nuc batches; the first batch's device
+                chain, inputs resident, timed whole on the first card and
+                sharded (equal bytes). Then conv="diag_pallas" at
+                make_example size sharded against one card: bytes equal,
+                K1 launches == 2 x shards x batches. Phase 5 and every
+                later phase pass one explicit card (CARD).
   6. parity   — the same small run on cuda and on cpu (plain versions):
                 output rows equal, signal tracks within nuc.exact_tol.
   7. stages   — `nucleoatac-torch occ`, `nuc`, `merge`, `nfr` (the
@@ -77,7 +88,7 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 exists and names nuc_scores_kernel.
 Then one JSON line of kernel records (K2's launches from phase 5, K1's
 from phase 8, and each kernel's launches on every path that ran it,
-phase 8b's wires included) and as
+phase 5b's sharded runs and phase 8b's wires included) and as
 the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX (``jax`` is blocked in this process) and nothing of
@@ -98,6 +109,8 @@ from nucleoatac_torch.synthetic import make_example, make_long_example, synth_da
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_RECORDS: list = []
+# the one card of every phase but 5b's sharded runs
+CARD = "cuda:0"
 
 
 def phase(name: str, msg: str) -> None:
@@ -556,7 +569,7 @@ def phase_run(data: dict) -> dict:
     reset_launches()
     t0 = time.perf_counter()
     res = run_pipeline(data["bam"], data["bed"], prefix, fasta_path=data["fasta"],
-                       cfg=cfg, write_plots=False, device="cuda")
+                       cfg=cfg, write_plots=False, device=CARD)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -583,6 +596,96 @@ def phase_run(data: dict) -> dict:
           f"{res.occ_stage.n_spot_checked}")
     return {"prefix": prefix, "launches": launches, "steps": steps,
             "windows": windows, "max_qstep": res.nuc_stage.max_qstep}
+
+
+def phase_devices(data: dict, run5: dict) -> dict:
+    """The one-process multi-device run (the reference's auto_mesh): at
+    full width on phase 5's dataset through run_pipeline's "cuda" where
+    more than one card is visible, else over [cuda:0, cuda:0]; then the
+    K1 route sharded at make_example size. Returns each kernel's
+    launches."""
+    import torch
+
+    from nucleoatac_torch.config import RunConfig, WindowParams
+    from nucleoatac_torch.models.engine import TorchEngine
+    from nucleoatac_torch.models.pipeline import run_pipeline
+    from nucleoatac_torch.parity import RUN_SUFFIXES
+
+    cards = torch.cuda.device_count()
+    cfg = RunConfig()
+    prefix = os.path.join(data["dir"], "devices")
+    # keep the arguments of the run's first batch, to time its chain after
+    real, first = TorchEngine.run_step_pool2, []
+
+    def keep_first(eng, *args):
+        if not first:
+            first.extend(args)
+        return real(eng, *args)
+
+    TorchEngine.run_step_pool2 = keep_first
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run_pipeline(data["bam"], data["bed"], prefix, fasta_path=data["fasta"],
+                           cfg=cfg, write_plots=False,
+                           device="cuda" if cards > 1 else [CARD, CARD])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, devs = read_launches(), res.engine.devices
+    finally:
+        TorchEngine.run_step_pool2 = real
+    shards = len(devs)
+    if shards < 2 or (cards > 1 and len(set(devs)) != cards):
+        raise AssertionError(f"devices: the run sharded over {devs} ({cards} cards)")
+    want = {"nuc_scores": shards * run5["steps"], "diag_xcorr": 0}
+    if res.engine.steps != want["nuc_scores"] or launches != want:
+        raise AssertionError(f"devices: launches {launches}, {res.engine.steps} shard "
+                             f"batches; expected {want}")
+    rows = sum(same_rows(run5["prefix"] + sfx, prefix + sfx) for sfx in RUN_SUFFIXES)
+
+    # device chain of one batch, inputs resident on the first card: the
+    # whole batch's chain on it against the sharded entry point (the
+    # gather on the first card waits for every shard)
+    eng, dev0 = res.engine, res.engine.device
+    pool, table, packed2, esc, emax = first
+    resident = [torch.as_tensor(a).to(dev0) for a in (table, packed2, esc)]
+    whole = eng._run_pool2(pool[dev0], *resident, emax)
+    if not torch.equal(eng.run_step_pool2(pool, *resident, emax), whole):
+        raise AssertionError("devices: the sharded chain's bytes differ from one card's")
+    chain_ms = {"one": cuda_ms(lambda: eng._run_pool2(pool[dev0], *resident, emax)),
+                "sharded": cuda_ms(lambda: eng.run_step_pool2(pool, *resident, emax))}
+
+    # the K1 route sharded: make_example size, batches of 4
+    small = RunConfig(window=WindowParams(core=256, batch=4, conv="diag_pallas"))
+    k = cards if cards > 1 and small.window.batch % cards == 0 else 2
+    sharded = [f"cuda:{i % cards}" for i in range(k)]
+    with tempfile.TemporaryDirectory() as d:
+        ex = make_example(d)
+        out = {}
+        for name, dev in (("one", CARD), ("sharded", sharded)):
+            reset_launches()
+            r = run_pipeline(ex["bam"], ex["bed"], os.path.join(d, name),
+                             fasta_path=ex["fasta"], cfg=small, write_plots=False,
+                             device=dev)
+            out[name] = (read_launches(), r.engine.steps)
+        k1 = out["sharded"][0]["diag_xcorr"]
+        if out["sharded"] != ({"nuc_scores": 0, "diag_xcorr": 2 * k * out["one"][1]},
+                              k * out["one"][1]) or out["one"][1] == 0:
+            raise AssertionError(f"devices: diag_pallas launches and shard batches "
+                                 f"{out} for {k} shards")
+        small_rows = sum(same_rows(os.path.join(d, "one") + sfx,
+                                   os.path.join(d, "sharded") + sfx) for sfx in RUN_SUFFIXES)
+    w = run5["windows"]
+    phase("devices", f"{shards} shards of {cfg.window.batch // shards} windows on "
+          f"{','.join(map(str, devs))}: run_pipeline {wall:.2f} s = {w / wall:.1f} "
+          f"windows/s; {launches['nuc_scores']} K2 launches for {run5['steps']} batches; "
+          f"device chain of a batch, inputs resident: {chain_ms['one']:.3f} ms on "
+          f"{dev0} alone, {chain_ms['sharded']:.3f} ms sharded; "
+          f"{len(RUN_SUFFIXES)} files, {rows} rows byte-equal to phase 5; diag_pallas "
+          f"on {sharded} at make_example size: {k1} K1 launches, {small_rows} rows "
+          f"byte-equal to {CARD} alone; {smi()}")
+    return {"nuc_scores": launches["nuc_scores"], "diag_xcorr": k1, "wall_s": wall,
+            "shards": shards, "chain_ms": chain_ms}
 
 
 def phase_parity() -> None:
@@ -624,7 +727,7 @@ def phase_stages(data: dict, run5: dict) -> int:
     # end with each group of chunks, so it can have more
     batches = -(-run5["windows"] // RunConfig().window.batch)
     base = ["--bed", data["bed"], "--bam", data["bam"], "--fasta", data["fasta"],
-            "--out", prefix, "--device", "cuda", "--no_plots"]
+            "--out", prefix, "--device", CARD, "--no_plots"]
     walls = {}
     for cmd in ("occ", "nuc"):
         reset_launches()
@@ -671,7 +774,7 @@ def phase_conv(data: dict, run5: dict) -> int:
     reset_launches()
     t0 = time.perf_counter()
     res = run_pipeline(data["bam"], data["bed"], prefix, fasta_path=data["fasta"],
-                       cfg=cfg, write_plots=False, device="cuda")
+                       cfg=cfg, write_plots=False, device=CARD)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -765,7 +868,7 @@ def _wires_upper500(data: dict) -> tuple:
         reset_launches()
         t0 = time.perf_counter()
         rc = nucleoatac(["run", "--bed", bed, "--bam", bam, "--fasta", fa, "--out", prefix,
-                         "--upper", "500", "--device", "cuda", "--no_plots"])
+                         "--upper", "500", "--device", CARD, "--no_plots"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
@@ -833,7 +936,7 @@ def _wires_full(data: dict, run5: dict) -> tuple:
             t0 = time.perf_counter()
             res = pipeline.run_pipeline(data["bam"], data["bed"], prefix,
                                         fasta_path=data["fasta"], cfg=cfg,
-                                        write_plots=False, device="cuda")
+                                        write_plots=False, device=CARD)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
@@ -876,7 +979,7 @@ def _wires_direct(data: dict, run5: dict) -> str:
     reset_launches()
     t0 = time.perf_counter()
     res = run_pipeline(data["bam"], data["bed"], prefix, fasta_path=data["fasta"],
-                       cfg=cfg, write_plots=False, device="cuda")
+                       cfg=cfg, write_plots=False, device=CARD)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -1006,7 +1109,7 @@ def phase_resume_bias() -> None:
     with tempfile.TemporaryDirectory() as d:
         ex = make_example(d)
         common = ["--bed", ex["bed"], "--bam", ex["bam"], "--fasta", ex["fasta"],
-                  "--batch", "4", "--device", "cuda", "--no_plots"]
+                  "--batch", "4", "--device", CARD, "--no_plots"]
         run, via, bias = (os.path.join(d, n) for n in ("run", "via", "b"))
         if nucleoatac(["run", *common, "--out", run]) != 0:
             raise AssertionError("run failed")
@@ -1161,7 +1264,7 @@ def phase_hosts(data: dict, run5: dict) -> dict:
         with open(ex["bed"], "a") as fh:
             fh.write("chr1\t3600\t5600\tpeak2\n")
         base = ["run", "--bed", ex["bed"], "--bam", ex["bam"], "--fasta", ex["fasta"],
-                "--batch", "4", "--device", "cuda", "--no_plots"]
+                "--batch", "4", "--device", CARD, "--no_plots"]
         one, ext = os.path.join(d, "one"), os.path.join(d, "ext")
         calls = [[*base, "--out", one]]
         calls += [[*base, "--out", ext, "--num_hosts", "2", "--host_id", k] for k in "01"]
@@ -1241,7 +1344,7 @@ def phase_nonexact(data: dict) -> dict:
             reset_launches()
             t0 = time.perf_counter()
             res = run_pipeline(data["bam"], data["bed"], prefix, fasta_path=data["fasta"],
-                               cfg=cfg, write_plots=False, device="cuda")
+                               cfg=cfg, write_plots=False, device=CARD)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = read_launches()
@@ -1303,7 +1406,7 @@ def phase_profile() -> None:
         reset_launches()
         if nucleoatac(["run", "--bed", ex["bed"], "--bam", ex["bam"], "--fasta", ex["fasta"],
                        "--out", os.path.join(d, "prof"), "--batch", "4", "--device",
-                       "cuda", "--no_plots", "--profile", trace_dir]) != 0:
+                       CARD, "--no_plots", "--profile", trace_dir]) != 0:
             raise AssertionError("run --profile failed")
         traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
         if len(traces) != 1:
@@ -1331,6 +1434,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         data = make_dataset(d)
         run5 = phase_run(data)
+        devices = phase_devices(data, run5)
         phase_parity()
         stages_k2 = phase_stages(data, run5)
         k1_launches = phase_conv(data, run5)
@@ -1347,10 +1451,12 @@ def main() -> int:
     launches = {"nuc_scores": run5["launches"]["nuc_scores"],
                 "diag_xcorr": k1_launches}
     by_path = {
-        "nuc_scores": {"run": launches["nuc_scores"], "stages": stages_k2,
+        "nuc_scores": {"run": launches["nuc_scores"], "devices": devices["nuc_scores"],
+                       "stages": stages_k2,
                        "hosts": hosts["nuc_scores"], "nonexact": nonexact["nuc_scores"],
                        **wires["nuc_scores"]},
-        "diag_xcorr": {"conv": k1_launches, "nonexact_diag_pallas": nonexact["diag_xcorr"],
+        "diag_xcorr": {"conv": k1_launches, "devices_diag_pallas": devices["diag_xcorr"],
+                       "nonexact_diag_pallas": nonexact["diag_xcorr"],
                        **wires["diag_xcorr"]},
     }
     for rec in KERNEL_RECORDS:

@@ -2,8 +2,11 @@
 
 Counterpart of nucleoatac_tpu/cli/nucleoatac.py with the same subcommands
 and flags, except:
-  * ``--device {cuda,cpu}`` (default cuda) replaces ``--platform``; cuda
-    without a card is an error, never a silent CPU run;
+  * ``--device {cuda,cuda:k,cpu}`` (default cuda) replaces
+    ``--platform``: cuda shards each window batch over every visible card
+    when the batch divides among them, as the reference's mesh does;
+    cuda:k takes card k alone; cuda without a card is an error, never a
+    silent CPU run;
   * ``--conv`` diag runs the K2 kernel, diag_pallas two K1 launches, and
     direct two full-float32 ``conv1d`` calls;
   * ``--transfer delta12`` and ``delta`` run the two passes, where the
@@ -11,7 +14,7 @@ and flags, except:
     pass is the slower of the two);
   * ``--fetch-threads`` is gone (a relay setting);
   * ``--profile DIR`` writes a torch.profiler trace (TensorBoard format);
-  * ``--num_hosts``/``--host_id`` run one host's shard on its device
+  * ``--num_hosts``/``--host_id`` run one host's shard on its devices
     (``cuda:{LOCAL_RANK}`` under torchrun, whose environment also forms
     the gloo process group), and ``--finalize`` merges the shards.
 Plots need matplotlib, which is imported only when plots are written.
@@ -32,6 +35,13 @@ from nucleoatac_torch.config import (
 )
 from nucleoatac_torch.models.engine import CONV_ROUTES
 from nucleoatac_torch.models.occ import WIRES
+
+
+def _device_arg(s: str) -> str:
+    """--device: cuda, cuda:k or cpu."""
+    if s in ("cuda", "cpu") or (s.startswith("cuda:") and s[5:].isdigit()):
+        return s
+    raise argparse.ArgumentTypeError(f"{s!r}: expected cuda, cuda:k or cpu")
 
 
 def _common(p: argparse.ArgumentParser, fasta_required: bool = False) -> None:
@@ -64,9 +74,12 @@ def _tune(p: argparse.ArgumentParser) -> None:
              "nucpos row",
     )
     p.add_argument(
-        "--device", default="cuda", choices=["cuda", "cpu"],
-        help="torch device of the occ and nuc stages (cuda raises without "
-             "a GPU; cpu runs the kernels' plain versions)",
+        "--device", default="cuda", type=_device_arg,
+        help="torch device of the occ and nuc stages: cuda shards each "
+             "window batch over every visible GPU when the batch divides "
+             "among them (one per rank under torchrun), cuda:k takes GPU k "
+             "alone, cpu runs the kernels' plain versions; cuda raises "
+             "without a GPU",
     )
     p.add_argument(
         "--batch", type=int, default=WindowParams.batch,

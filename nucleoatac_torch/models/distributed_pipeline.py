@@ -3,8 +3,8 @@
 Counterpart of nucleoatac_tpu/models/distributed_pipeline.py over
 TorchEngine. Each host process — or, on one machine, each GPU's process
 — takes a contiguous (genome-ordered) slice of the peak chunks, runs the
-two-pass occ and nuc stages on its own device (parallel/mesh.py ::
-local_device) writing `<out>.part<k>.*` shards, and host 0 concatenates
+two-pass occ and nuc stages on its devices (parallel/mesh.py ::
+auto_devices: a torchrun rank's one card, else every visible card) writing `<out>.part<k>.*` shards, and host 0 concatenates
 the shards (re-indexing tabix) and runs the host merge and nfr stages on
 the combined outputs. Works under a torch.distributed process group
 (``torchrun``'s MASTER_ADDR et al.; parallel/distributed.py), which
@@ -35,7 +35,7 @@ from nucleoatac_torch.parallel.distributed import (
     init_distributed,
     merge_host_shards,
 )
-from nucleoatac_torch.parallel.mesh import local_device, sharded_size_histogram
+from nucleoatac_torch.parallel.mesh import auto_devices, sharded_size_histogram
 from nucleoatac_torch.utils.logging import log, stage_timer
 
 _SHARD_SUFFIXES = [
@@ -173,8 +173,9 @@ def run_distributed(
     num_hosts: Optional[int] = None,
     device: str = "cuda",
 ) -> None:
-    """One host's share of `run` on ``device`` (``cuda:{LOCAL_RANK}``
-    under torchrun). Joins the process group when the launcher's
+    """One host's share of `run` on ``device``'s cards (auto_devices:
+    ``cuda:{LOCAL_RANK}`` in a launcher's group, else every visible card
+    when the batch divides among them). Joins the process group when the launcher's
     environment names one and leaves it before returning."""
     import torch.distributed as dist
 
@@ -186,7 +187,7 @@ def run_distributed(
     if num_hosts is not None:
         nhosts = num_hosts
     try:
-        dev = local_device(device)
+        devs = auto_devices(cfg, device)
         frags = scan_bam(bam, cfg.ingest)
         fasta = FastaFile(fasta_path) if fasta_path else None
         pwm = PWM.open(pwm_path) if pwm_path else PWM.default()
@@ -199,11 +200,11 @@ def run_distributed(
             mix.save(f"{out_prefix}.occ_fit.txt")
 
         local_chunks = ChunkList(host_tile_slice(all_chunks.chunks, pid, nhosts))
-        log.info("host %d/%d on %s: %d of %d chunks", pid, nhosts, dev,
-                 len(local_chunks), len(all_chunks))
+        log.info("host %d/%d on %s: %d of %d chunks", pid, nhosts,
+                 ",".join(map(str, devs)), len(local_chunks), len(all_chunks))
         shard_prefix = f"{out_prefix}.part{pid}"
         with stage_timer(f"host {pid} shard"):
-            engine = TorchEngine(cfg, mix, fs, vmat, pwm=pwm, device=dev,
+            engine = TorchEngine(cfg, mix, fs, vmat, pwm=pwm, device=devs,
                                  conv=cfg.window.conv)
             occ_res = OccStage(cfg, engine).run(
                 frags, local_chunks, mix, fs, shard_prefix, keep_tracks=True

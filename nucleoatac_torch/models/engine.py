@@ -28,8 +28,18 @@ full-float32 ``conv1d`` calls (ops/xcorr.py :: conv_stack_direct), where
 the reference runs two XLA convolutions, then the same epilogue. On the
 CPU each kernel wrapper runs its plain version. Tables live as tensors on
 an explicit ``torch.device``; the host decoders are the reference's.
+
+Several devices shard every window batch, as the reference's mesh does
+(parallel/mesh.py :: auto_devices): each holds its own copy of the
+tables, every entry point (``shard``) cuts its per-window inputs on axis
+0 into one contiguous slice per device, uploads the pool wire's record
+pool whole to each (replicated, as the reference's is), runs each slice's
+chain on its card and gathers the outputs in window order on the first.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,7 +48,7 @@ from nucleoatac_torch.config import RunConfig
 from nucleoatac_torch.core.fragmentsizes import FragmentSizes
 from nucleoatac_torch.core.mixture import FragmentMixDistribution
 from nucleoatac_torch.core.vmat import VMat
-from nucleoatac_torch.device import resolve_device
+from nucleoatac_torch.device import resolve_device, to_device
 from nucleoatac_torch.models.params import (
     engine_tables_from_numpy,
     host_tables,
@@ -67,6 +77,32 @@ from nucleoatac_torch.ops.xcorr import finish_scores, nuc_conv_outputs_direct, p
 CONV_ROUTES = ("diag", "diag_pallas", "direct")
 
 
+class Replicated(dict):
+    """One copy of an array per engine device, keyed by device
+    (TorchEngine.replicate): the pool wire's record pool, which every
+    shard's windows read."""
+
+
+class Escapes(NamedTuple):
+    """The wire-v9 N-escape list [E, 2] of (row, col) entries, padded
+    with (0, wp): a shard keeps the entries of its own rows."""
+    esc: object  # numpy array or tensor
+    wp: int
+
+
+def _upload(a, dev: torch.device) -> torch.Tensor:
+    """A host array or a tensor on ``dev`` (pinned, without blocking, for
+    a host array bound for a card)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, non_blocking=True)
+    return to_device(a, dev)
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current device while a shard's chain is enqueued."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 class TorchEngine:
     def __init__(
         self,
@@ -75,18 +111,26 @@ class TorchEngine:
         fragmentsizes: FragmentSizes,
         vmat: VMat | None = None,
         pwm=None,
-        device: str | torch.device = "cuda",
+        device="cuda",
         tables: dict | None = None,
         conv: str | None = None,
     ):
-        """``tables`` (numpy, by DeviceEngine attribute name; see
+        """``device`` is one device or a list of them (models/pipeline.py
+        picks it with parallel/mesh.py :: auto_devices); a list shards
+        each window batch in equal slices, one per entry (an entry may
+        repeat). ``tables`` (numpy, by DeviceEngine attribute name; see
         models/params.py) replaces the tables built from mix/vmat/pwm.
         ``conv`` (default ``cfg.window.conv``) picks the xcorr route."""
         self.cfg = cfg
         self.conv = conv or cfg.window.conv
         if self.conv not in CONV_ROUTES:
             raise ValueError(f"conv={self.conv!r}; expected one of {CONV_ROUTES}")
-        self.device = resolve_device(device)
+        devices = [device] if isinstance(device, (str, torch.device)) else list(device)
+        self.devices = [resolve_device(d) for d in devices]
+        if not self.devices or cfg.window.batch % len(self.devices):
+            raise ValueError(f"window batch {cfg.window.batch} does not divide "
+                             f"over devices {self.devices}")
+        self.device = self.devices[0]
         self.width = cfg.window.width(cfg.occ, cfg.vmat)
         self.halo = cfg.window.halo(cfg.occ, cfg.vmat)
         self.vmat = vmat or VMat.default(cfg.vmat)
@@ -100,13 +144,16 @@ class TorchEngine:
         self.log_mix = tables["log_mix"]
         self.alpha_grid = tables["alpha_grid"]
         self.smooth_kernel = tables["smooth_kernel"]
-        self.tables = engine_tables_from_numpy(tables, self.device)
+        # one copy of the tables per device; self.tables is the first's
+        self._tables = {d: engine_tables_from_numpy(tables, d)
+                        for d in dict.fromkeys(self.devices)}
+        self.tables = self._tables[self.device]
         if pwm is not None and "pwm_log_ratio" not in self.tables:
             raise ValueError("tables lack pwm_log_ratio for the given PWM")
         self.core_lo = self.halo
         self.core_hi = self.width - self.halo
         self.core = cfg.window.core
-        self.steps = 0  # nuc batches dispatched (every _scores call)
+        self.steps = 0  # nuc batches dispatched, per shard (every _scores call)
 
     def smooth_margin(self) -> int:
         """Columns of norm needed on each side of the core to reproduce the
@@ -116,6 +163,63 @@ class TorchEngine:
     def seq_codes_width(self) -> int:
         """Width of the per-window sequence-code row."""
         return self.width + self.pwm.length - 1
+
+    def _tab(self, t: torch.Tensor) -> dict:
+        """The tables on ``t``'s device."""
+        return self._tables[t.device]
+
+    # ---------------- sharding ----------------------------------------
+    def replicate(self, a):
+        """``a`` (host array or tensor) on every device, uploaded once per
+        device: a Replicated of the copies, or with one device the
+        tensor itself."""
+        if len(self.devices) == 1:
+            return _upload(a, self.device)
+        return Replicated({d: _upload(a, d) for d in self._tables})
+
+    def shard(self, chain, *args):
+        """``chain(*args)`` over the engine's devices, as one tensor in
+        window order on the first device. Arguments: host arrays and
+        tensors (window axis first), a Replicated, an Escapes, or other
+        values passed as they are. One device: ``chain`` on the whole
+        batch, host arrays uploaded. n devices: device i gets windows
+        [i*B/n, (i+1)*B/n) of each array, its own Replicated copy and the
+        escapes of its rows rebased, and its chain runs with it as the
+        current device, on its current stream; the outputs are copied to
+        the first device (peer copies that order both cards' streams)
+        and concatenated."""
+        if len(self.devices) == 1:
+            dev = self.device
+            return chain(*(
+                _upload(a.esc, dev) if isinstance(a, Escapes)
+                else _upload(a, dev) if isinstance(a, (np.ndarray, torch.Tensor))
+                else a for a in args))
+        n = len(self.devices)
+        B = next(len(a) for a in args if isinstance(a, (np.ndarray, torch.Tensor)))
+        if B % n:
+            raise ValueError(f"batch of {B} windows does not divide over {n} devices")
+        s = B // n
+        outs = []
+        for i, dev in enumerate(self.devices):
+            lo, hi = i * s, (i + 1) * s
+
+            def part(a):
+                if isinstance(a, Replicated):
+                    return a[dev]
+                if isinstance(a, Escapes):
+                    e = torch.as_tensor(a.esc)
+                    r, c = e[:, 0], e[:, 1]
+                    keep = (r >= lo) & (r < hi)
+                    return _upload(torch.stack(
+                        [torch.where(keep, r - lo, 0), torch.where(keep, c, a.wp)],
+                        dim=1), dev)
+                if isinstance(a, (np.ndarray, torch.Tensor)):
+                    return _upload(a[lo:hi], dev)
+                return a
+
+            with _on(dev):
+                outs.append(chain(*(part(a) for a in args)))
+        return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
 
     # ---------------- chain stages ------------------------------------
     def _raster_pool(self, pool, table, emax: int):
@@ -160,7 +264,7 @@ class TorchEngine:
     def _logbias_seq(self, codes):
         """Plain uint8 base codes [B, W + L - 1] (the packed wire's
         sequence upload)."""
-        return pwm_bias_batch(codes, self.tables["pwm_log_ratio"])
+        return pwm_bias_batch(codes, self._tab(codes)["pwm_log_ratio"])
 
     def _logbias_2bit(self, packed2, esc):
         return self._logbias_seq(unpack_2bit_codes(packed2, self.seq_codes_width(), esc))
@@ -172,7 +276,7 @@ class TorchEngine:
         """Wire v8 occ bytes: uint8 [B, 2*core + ceil(core/4)]."""
         p = self.cfg.occ
         return occupancy_packed2(
-            mat, self.tables["log_mix"], p.flank, self.core_lo, self.core,
+            mat, self._tab(mat)["log_mix"], p.flank, self.core_lo, self.core,
             p.ci_drop, p.exact_tol,
         )
 
@@ -180,13 +284,13 @@ class TorchEngine:
         """Wire v2 occ bytes (non-exact mode): uint8 [B, 3, core]."""
         p = self.cfg.occ
         return occupancy_packed3(
-            mat, self.tables["log_mix"], p.flank, self.core_lo, self.core,
+            mat, self._tab(mat)["log_mix"], p.flank, self.core_lo, self.core,
             p.ci_drop, p.exact_tol,
         )
 
     def _bias(self, log_bias):
         return bias_mat_batch(
-            log_bias, self.tables["size_probs"], self.cfg.vmat.lower,
+            log_bias, self._tab(log_bias)["size_probs"], self.cfg.vmat.lower,
             self.cfg.vmat.upper, self.core_lo, self.core_hi,
         )
 
@@ -199,7 +303,8 @@ class TorchEngine:
         vlo = self.cfg.vmat.lower - self.cfg.sizes.lower
         vup = self.cfg.vmat.upper - self.cfg.sizes.lower
         fmat, b0 = mat[:, vlo:vup], self._bias(log_bias)
-        tabs = self.tables["_diag_kernels"]
+        tables = self._tab(mat)
+        tabs = tables["_diag_kernels"]
         if self.conv == "diag":  # one K2 launch: xcorr and epilogue
             k2 = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)
             return k2[:, 0], k2[:, 1], k2[:, 2], k2[:, 3]
@@ -207,7 +312,7 @@ class TorchEngine:
             fo, bo = nuc_conv_outputs(fmat, b0, *tabs)
         else:  # "direct": two conv1d calls over the build_kernels stacks
             fo, bo = nuc_conv_outputs_direct(
-                fmat, b0, self.tables["f_kernels"], self.tables["b_kernels"]
+                fmat, b0, tables["f_kernels"], tables["b_kernels"]
             )
         # the reference's _convs_impl + _finish_impl: valid outputs padded
         # dyad-aligned to W, then the elementwise epilogue
@@ -229,7 +334,7 @@ class TorchEngine:
         whole window (non-exact mode); under "diag" K2's channels
         reordered, the reference's use_pallas form."""
         norm, signal, lr, fuzz = self._scores(mat, log_bias)
-        smooth = gauss_smooth_batch(norm, self.tables["smooth_kernel"])
+        smooth = gauss_smooth_batch(norm, self._tab(norm)["smooth_kernel"])
         return torch.stack([norm, smooth, signal, lr, fuzz], dim=1)
 
     def _nucm16(self, mat, log_bias):
@@ -270,46 +375,64 @@ class TorchEngine:
         return torch.cat([occ2.reshape(B, -1), norm_packed.reshape(B, -1)], dim=1)
 
     # ---------------- entry points ------------------------------------
-    def run_step_pool(self, pool, table, packed_codes, emax: int):
-        """Wire v7 fragments + nibble sequence codes (the fallback when a
-        batch has more N bases than the 2-bit escape list holds)."""
+    # Each takes host arrays or tensors (the pool as either, or as
+    # replicate's Replicated) and shards them over the engine's devices.
+    def _run_pool(self, pool, table, packed_codes, emax):
         mat = self._raster_pool(pool, table, emax)
         occ2 = self._occ_packed2(mat)
         return self._pack_run(occ2, self._nucm16(mat, self._logbias_nib(packed_codes)))
 
-    def run_step_pool2(self, pool, table, packed2, esc, emax: int):
-        """Wire v7 fragments + wire v9 2-bit sequence plane (the main
-        path's dispatch)."""
+    def _run_pool2(self, pool, table, packed2, esc, emax):
         mat = self._raster_pool(pool, table, emax)
         occ2 = self._occ_packed2(mat)
         return self._pack_run(occ2, self._nucm16(mat, self._logbias_2bit(packed2, esc)))
 
+    def _pool(self, pool):
+        return pool if isinstance(pool, Replicated) else self.replicate(pool)
+
+    def run_step_pool(self, pool, table, packed_codes, emax: int):
+        """Wire v7 fragments + nibble sequence codes (the fallback when a
+        batch has more N bases than the 2-bit escape list holds)."""
+        return self.shard(self._run_pool, self._pool(pool), table, packed_codes, emax)
+
+    def run_step_pool2(self, pool, table, packed2, esc, emax: int):
+        """Wire v7 fragments + wire v9 2-bit sequence plane (the main
+        path's dispatch)."""
+        return self.shard(self._run_pool2, self._pool(pool), table, packed2,
+                          Escapes(esc, self.seq_codes_width()), emax)
+
     def occ_step_delta12_p2(self, buf):
         """Standalone occ: wire v6 records -> wire v8 occ bytes."""
-        return self._occ_packed2(self._raster_delta12(buf))
+        return self.shard(lambda b: self._occ_packed2(self._raster_delta12(b)), buf)
 
     def nuc_step_delta12_seq_m16(self, buf, packed_codes):
         """Standalone nuc: wire v6 records + nibble sequence codes -> u16
         norm with smooth margins."""
-        return self._nucm16(self._raster_delta12(buf), self._logbias_nib(packed_codes))
+        return self.shard(
+            lambda b, c: self._nucm16(self._raster_delta12(b), self._logbias_nib(c)),
+            buf, packed_codes)
 
     def nuc_step_delta12_m16(self, buf, log_bias):
         """Standalone nuc from an uploaded f32 log-bias row [B, W] (the
         ``--bias_track`` path, engine built without a PWM)."""
-        return self._nucm16(self._raster_delta12(buf), log_bias)
+        return self.shard(lambda b, lb: self._nucm16(self._raster_delta12(b), lb),
+                          buf, log_bias)
 
     def occ_step_delta12_c3(self, buf):
         """Non-exact occ: wire v6 records -> wire v2 occ bytes."""
-        return self._occ_packed3(self._raster_delta12(buf))
+        return self.shard(lambda b: self._occ_packed3(self._raster_delta12(b)), buf)
 
     def nuc_step_delta12_seq_c(self, buf, packed_codes):
         """Non-exact nuc: wire v6 records + nibble sequence codes -> f32
         [B, 5, W] score tracks."""
-        return self._nuc5(self._raster_delta12(buf), self._logbias_nib(packed_codes))
+        return self.shard(
+            lambda b, c: self._nuc5(self._raster_delta12(b), self._logbias_nib(c)),
+            buf, packed_codes)
 
     def nuc_step_delta12_c(self, buf, log_bias):
         """Non-exact nuc from an uploaded f32 log-bias row [B, W]."""
-        return self._nuc5(self._raster_delta12(buf), log_bias)
+        return self.shard(lambda b, lb: self._nuc5(self._raster_delta12(b), lb),
+                          buf, log_bias)
 
     # ---------------- host decoders (the reference's, verbatim) --------
     def unpack_run(self, buf: np.ndarray):

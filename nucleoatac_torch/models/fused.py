@@ -24,7 +24,6 @@ from nucleoatac_torch.core.fragmentsizes import FragmentSizes
 from nucleoatac_torch.core.mixture import FragmentMixDistribution
 from nucleoatac_torch.io.bam import BamFragments
 from nucleoatac_torch.models.data import ChunkAssembler, tile_chunks
-from nucleoatac_torch.device import to_device
 from nucleoatac_torch.models.engine import TorchEngine
 from nucleoatac_torch.models.nuc import (
     NucStage,
@@ -88,28 +87,23 @@ def run_fused(
         pack_nibble_codes,
     )
 
-    dev = eng.device
-    # one device-resident pool per group: uploaded once, reused by every
-    # batch of the group
+    # one device-resident pool per group (a copy on each of the engine's
+    # devices): uploaded once, reused by every batch of the group
     pool_dev = {"id": None, "arr": None}
 
     def dispatch(batch):
         rows = seq_provider.rows(batch.meta)
         if batch.pool_id != pool_dev["id"]:
             pool_dev["id"] = batch.pool_id
-            pool_dev["arr"] = to_device(batch.pool, dev)
+            pool_dev["arr"] = eng.replicate(batch.pool)
         # wire v9: 2-bit sequence plane; batches whose N count overflows
         # the escape list (chrom edges, N-blocks) take the nibble program
         packed2, esc, ok = pack_2bit_codes(rows)
         if ok:
-            return eng.run_step_pool2(
-                pool_dev["arr"], to_device(batch.table, dev),
-                to_device(packed2, dev), to_device(esc, dev), batch.emax,
-            )
-        return eng.run_step_pool(
-            pool_dev["arr"], to_device(batch.table, dev),
-            to_device(pack_nibble_codes(rows), dev), batch.emax,
-        )
+            return eng.run_step_pool2(pool_dev["arr"], batch.table, packed2, esc,
+                                      batch.emax)
+        return eng.run_step_pool(pool_dev["arr"], batch.table,
+                                 pack_nibble_codes(rows), batch.emax)
 
     batches = make_pool_batches(frags, tiles, eng.width, cfg.window.batch)
     grid64 = mix.alpha_grid(cfg.occ)

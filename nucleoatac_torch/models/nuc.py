@@ -31,7 +31,6 @@ from nucleoatac_torch.models.data import (
     tile_chunks,
 )
 from nucleoatac_torch.utils.numerics import greedy_select_fast, local_max_candidates_fast
-from nucleoatac_torch.device import to_device
 from nucleoatac_torch.models.occ import _pipelined, stage_wire, wire_batches
 
 
@@ -351,31 +350,35 @@ class NucStage:
         cfg, eng = self.cfg, self.engine
         finish = eng._nucm16 if cfg.nuc.exact else eng._nuc5
 
-        def up(a):
-            return to_device(a, eng.device)
-
-        def nib(b):  # the delta wires' sequence upload
-            return eng._logbias_nib(up(pack_nibble_codes(seq_rows(b.meta))))
-
-        def plain(b):  # the packed wire's: plain uint8 codes
-            return eng._logbias_seq(up(seq_rows(b.meta)))
-
-        def rows(b):
-            return up(log_bias_rows(b))
-
         wire = stage_wire(cfg)
-        raster = {
-            "delta12": lambda b: eng._raster_delta12(up(b.buf)),
-            "delta": lambda b: eng._raster_delta(up(b.delta)),
-            "packed": lambda b: eng._raster_packed(up(b.packed)),
-            "frags": lambda b: eng._raster_frags(up(b.mids), up(b.sizes), up(b.valid)),
-            "dense": lambda b: eng._dense(up(b.mats)),
+        # (raster stage, the batch's host arrays it uploads)
+        raster, frag_arrays = {
+            "delta12": (eng._raster_delta12, lambda b: (b.buf,)),
+            "delta": (eng._raster_delta, lambda b: (b.delta,)),
+            "packed": (eng._raster_packed, lambda b: (b.packed,)),
+            "frags": (eng._raster_frags, lambda b: (b.mids, b.sizes, b.valid)),
+            "dense": (eng._dense, lambda b: (b.mats,)),
         }[wire]
-        bias = {"delta12": nib, "delta": nib, "packed": plain}.get(wire, rows)
+        # (log-bias stage, its upload): nibble codes on the delta wires,
+        # plain uint8 codes on packed, else the f32 log-bias rows
+        bias, bias_array = {
+            "delta12": (eng._logbias_nib, lambda b: pack_nibble_codes(seq_rows(b.meta))),
+            "delta": (eng._logbias_nib, lambda b: pack_nibble_codes(seq_rows(b.meta))),
+            "packed": (eng._logbias_seq, lambda b: seq_rows(b.meta)),
+        }.get(wire, (None, log_bias_rows))
         if eng.pwm is None or self.bias_source is not None:
-            bias = rows
-        batches = wire_batches(cfg, wire, frags, tiles, eng.width)
-        return batches, lambda b: finish(raster(b), bias(b))
+            bias, bias_array = None, log_bias_rows
+
+        def dispatch(b):
+            arrays = frag_arrays(b)
+
+            def chain(*a):
+                log_bias = a[-1] if bias is None else bias(a[-1])
+                return finish(raster(*a[:-1]), log_bias)
+
+            return eng.shard(chain, *arrays, bias_array(b))
+
+        return wire_batches(cfg, wire, frags, tiles, eng.width), dispatch
 
     def _finish_chunk(self, cid, chunk, tracks, occ_lookup, writers, res) -> None:
         computed = self.compute_chunk(

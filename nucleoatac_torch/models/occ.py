@@ -34,7 +34,6 @@ from nucleoatac_torch.models.data import (
     tile_chunks,
 )
 from nucleoatac_torch.utils.numerics import greedy_select_fast, local_max_candidates_fast
-from nucleoatac_torch.device import to_device
 
 
 @dataclass
@@ -134,7 +133,7 @@ def _pipelined(batches, dispatch, depth: int = 3):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(out.device))  # the copy's stream
         return host, ev
 
     def finish(item):
@@ -252,23 +251,25 @@ class OccStage:
         cfg, eng = self.cfg, self.engine
         finish = eng._occ_packed2 if cfg.occ.exact else eng._occ_packed3
 
-        def up(a):
-            return to_device(a, eng.device)
-
         def frags_words(b):
             s = np.where(b.valid, b.sizes, 0).astype(np.int32)
             m = np.where(b.valid, b.mids, 0).astype(np.int32)
-            return eng._raster_packed(up((s << 16) | m))
+            return (s << 16) | m
 
         wire = stage_wire(cfg)
-        raster = {
-            "delta12": lambda b: eng._raster_delta12(up(b.buf)),
-            "delta": lambda b: eng._raster_delta(up(b.delta)),
-            "packed": lambda b: eng._raster_packed(up(b.packed)),
-            "frags": frags_words,
-            "dense": lambda b: eng._dense(up(b.mats)),  # int16
+        # (raster stage, the batch's host array it uploads)
+        raster, host = {
+            "delta12": (eng._raster_delta12, lambda b: b.buf),
+            "delta": (eng._raster_delta, lambda b: b.delta),
+            "packed": (eng._raster_packed, lambda b: b.packed),
+            "frags": (eng._raster_packed, frags_words),
+            "dense": (eng._dense, lambda b: b.mats),  # int16
         }[wire]
-        return wire_batches(cfg, wire, frags, tiles, eng.width), lambda b: finish(raster(b))
+
+        def dispatch(b):
+            return eng.shard(lambda a: finish(raster(a)), host(b))
+
+        return wire_batches(cfg, wire, frags, tiles, eng.width), dispatch
 
     def _exact_refinish(self, chunk: Chunk, tracks, frags: BamFragments) -> None:
         """Re-finish uncertified positions in float64 (DESIGN.md §4).

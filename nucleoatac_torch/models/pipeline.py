@@ -12,7 +12,7 @@ from __future__ import annotations
 import gzip
 import os
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -35,6 +35,7 @@ from nucleoatac_torch.models.occ import (
     OccStageResult,
     fit_mixture,
 )
+from nucleoatac_torch.parallel.mesh import auto_devices
 from nucleoatac_torch.models.standalone import (
     OccTrackReader,
     SequentialOccTracks,
@@ -112,18 +113,21 @@ def run_pipeline(
     write_plots: bool = True,
     resume: bool = False,
     bias_track: Optional[str] = None,
-    device: str = "cuda",
+    device: Union[str, Sequence[str]] = "cuda",
     profile_dir: Optional[str] = None,
 ) -> RunResult:
     """Run the whole pipeline on ``device`` ("cuda" raises when no card is
-    available; "cpu" runs the plain versions of the kernels). The xcorr
+    available; "cpu" runs the plain versions of the kernels). "cuda"
+    shards each window batch over every visible card when the batch
+    divides among them, "cuda:k" keeps card k, and a list names the
+    devices to shard over (parallel/mesh.py :: auto_devices). The xcorr
     route is ``cfg.window.conv``; ``profile_dir`` writes a torch.profiler
     trace of the run there."""
     from nucleoatac_torch.utils.logging import log, maybe_profile, stage_timer
 
     cfg = cfg or RunConfig()
     warn_synthetic_defaults(pwm_path, vmat_path, bias_track, needs_vmat=True)
-    with maybe_profile(profile_dir, device):
+    with maybe_profile(profile_dir, device if isinstance(device, str) else device[0]):
         with stage_timer("ingest"):
             frags = scan_bam(bam, cfg.ingest)
             log.info("ingest: %d fragments, %d chroms",
@@ -135,12 +139,14 @@ def run_pipeline(
         chunks = ChunkList.read(bed, frags.chrom_dict).merge()
         log.info("peaks: %d chunks, %d bp", len(chunks), chunks.total_bp())
 
+        devices = auto_devices(cfg, device)
+
         def make_engine(mix, fs):
             # a bias track replaces the on-device PWM (the nuc stage uploads
             # f32 log-bias rows), which also rules out the fused pass
             return TorchEngine(
                 cfg, mix, fs, vmat, pwm=None if bias_source else pwm,
-                device=device, conv=cfg.window.conv,
+                device=devices, conv=cfg.window.conv,
             )
 
         occ_stage = None

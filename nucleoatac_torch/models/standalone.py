@@ -4,7 +4,8 @@ track readers the run path shares with them.
 Counterpart of nucleoatac_tpu/models/standalone.py (host logic as it is):
 `occ` writes tracks, `nuc` re-reads them, `merge`/`nfr` consume the BED
 outputs. Each run_* function takes the parsed ``nucleoatac-torch`` arguments;
-``args.device`` names the torch device of the occ and nuc stages.
+``args.device`` names the torch device of the occ and nuc stages, from
+which parallel/mesh.py :: auto_devices picks the cards.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from nucleoatac_torch.models.merge import CombinedEntry, merge_maps
 from nucleoatac_torch.models.nfr import call_nfrs
 from nucleoatac_torch.models.nuc import BiasTrackSource, NucCall, NucStage
 from nucleoatac_torch.models.occ import OccPeak, OccStage, fit_mixture
+from nucleoatac_torch.parallel.mesh import auto_devices
 
 
 class OccTrackReader:
@@ -112,7 +114,8 @@ def run_occ(args) -> None:
         from nucleoatac_torch.utils import plotting
 
         plotting.plot_occ_fit(mix, f"{args.out}.occ_fit.eps")
-    engine = TorchEngine(cfg, mix, fs, device=args.device, conv=cfg.window.conv)
+    engine = TorchEngine(cfg, mix, fs, device=auto_devices(cfg, args.device),
+                         conv=cfg.window.conv)
     OccStage(cfg, engine).run(frags, chunks, mix, fs, args.out, keep_tracks=False)
 
 
@@ -131,7 +134,7 @@ def run_nuc(args) -> None:
     bias_source = BiasTrackSource(bias_track) if bias_track else None
     engine = TorchEngine(
         cfg, mix, fs, vmat, pwm=None if bias_source else pwm,
-        device=args.device, conv=cfg.window.conv,
+        device=auto_devices(cfg, args.device), conv=cfg.window.conv,
     )
     occ_reader = OccTrackReader(prefix)
     res = NucStage(cfg, engine, pwm, fasta, bias_source=bias_source).run(

@@ -101,9 +101,14 @@ def conv_stack_diag(x: torch.Tensor, k2d: torch.Tensor) -> torch.Tensor:
 
 def conv1d_stack(x: torch.Tensor, kerns: torch.Tensor) -> torch.Tensor:
     """[B, W] (x) [C, K] -> [B, C, W-K+1] valid xcorr of 1-D kernels
-    against per-bp sums."""
+    against per-bp sums: products and a sum over the taps in float64,
+    rounded once to x's dtype, so the bits do not depend on the thread
+    count. Not a BLAS product: as a float32 einsum, the one-kernel stack
+    (a matrix-vector product) gave six distinct results at 1 to 8 CPU
+    threads, enough to move the u16 norm of equal inputs by a step."""
     K = kerns.shape[1]
-    return torch.einsum("bjk,ck->bcj", x.unfold(1, K, 1), kerns)
+    win = x.unfold(1, K, 1).double()  # [B, W-K+1, K]
+    return (win[:, None] * kerns.double()[None, :, None, :]).sum(dim=-1).to(x.dtype)
 
 
 def nuc_conv_outputs_diag(frag_mat, b0, f2d, f1d, b2d, b1d):

@@ -6,6 +6,10 @@
 1. guard — each kernel on the last card while cuda:0 is the current
    device: launched there, and equal to its plain version there.
 2. run   — run_pipeline on cuda:0 over chip_smoke.py's synthetic dataset.
+2b. devices — run_pipeline on "cuda" in one process: each window batch
+   sharded over every visible card (parallel/mesh.py :: auto_devices).
+   All ten output files (decompressed) and nuc_dist must equal step 2's;
+   both walls are printed.
 3. ranks — for each N of --ranks (default: the GPU count), `torchrun
    --nproc_per_node N -m nucleoatac_torch.cli.nucleoatac run ...
    --num_hosts N`: each rank on its own card (cuda:{LOCAL_RANK}), rank 0
@@ -14,8 +18,9 @@
    finalize wall are read from the ranks' stage log.
 Prints one line per step and a JSON summary (also written to
 chiprun_out/multi_gpu_check.json, step by step); exits nonzero on any
-failure. ``--device cpu --ranks 2`` rehearses steps 2 and 3 without a
-GPU (plain kernel versions, every rank on the CPU).
+failure. ``--device cpu --ranks 2`` rehearses steps 2, 2b (two shards on
+the CPU) and 3 without a GPU (plain kernel versions, every rank on the
+CPU).
 """
 from __future__ import annotations
 
@@ -85,6 +90,47 @@ def digest(path: str) -> tuple:
             h.update(block)
             rows += block.count(b"\n")
     return rows, h.hexdigest()
+
+
+def run_devices(data: dict, device: str, ref: dict, one: str, t_one: float) -> dict:
+    """run_pipeline over every visible card in one process (two CPU
+    shards under --device cpu); its outputs against step 2's digests."""
+    import numpy as np
+
+    from nucleoatac_torch.config import RunConfig
+    from nucleoatac_torch.models.pipeline import run_pipeline
+    from nucleoatac_torch.ops import nuc_scores as k2
+    from nucleoatac_torch.parity import RUN_SUFFIXES
+
+    multi = os.path.join(data["dir"], "devices")
+    k2.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_pipeline(data["bam"], data["bed"], multi, fasta_path=data["fasta"],
+                       cfg=RunConfig(), write_plots=False,
+                       device="cuda" if device == "cuda" else ["cpu", "cpu"])
+    wall = time.perf_counter() - t0
+    devs = [str(d) for d in res.engine.devices]
+    if len(devs) < 2:
+        raise AssertionError(f"devices: one process ran on {devs} alone")
+    rows = 0
+    for sfx in RUN_SUFFIXES:
+        got = digest(multi + sfx)
+        if got != ref[sfx] or not got[0]:
+            raise AssertionError(f"{sfx}: {len(devs)} shards differ from one card")
+        rows += got[0]
+    if not (np.loadtxt(one + ".nuc_dist.txt") == np.loadtxt(multi + ".nuc_dist.txt")).all():
+        raise AssertionError("devices: nuc_dist differs")
+    if device == "cuda" and k2.LAUNCHES != res.engine.steps:
+        raise AssertionError(f"devices: {k2.LAUNCHES} K2 launches for "
+                             f"{res.engine.steps} shard batches")
+    for sfx in RUN_SUFFIXES:
+        os.remove(multi + sfx)
+    chip_smoke.phase("devices", f"one process on {devs}: {wall:.2f} s against one "
+                     f"card's {t_one:.2f} s; {res.engine.steps} shard batches; "
+                     f"{len(RUN_SUFFIXES)} files, {rows} rows and nuc_dist equal to "
+                     "one card")
+    return {"wall_s": wall, "one_s": t_one, "devices": devs,
+            "shard_batches": res.engine.steps, "rows": rows}
 
 
 def run_ranks(data: dict, ranks: int, device: str, ref: dict, one: str) -> dict:
@@ -160,6 +206,7 @@ def main() -> int:
         if torch.cuda.device_count() < 2:
             raise SystemExit("multi_gpu_check: needs at least two GPUs")
         summary["gpus"] = torch.cuda.device_count()
+        summary["card"] = chip_smoke.smi()
         chip_smoke.phase_build()
         summary["guard_max_abs_err"] = check_guard()
         save()
@@ -183,6 +230,8 @@ def main() -> int:
         summary.update({"one_s": t_one, "windows": windows, "t_data": data["t_data"]})
         save()
         ref = {sfx: digest(one + sfx) for sfx in RUN_SUFFIXES}
+        summary["devices"] = run_devices(data, args.device, ref, one, t_one)
+        save()
         for n in args.ranks or [torch.cuda.device_count()]:
             summary[f"ranks{n}"] = run_ranks(data, n, args.device, ref, one)
             save()
