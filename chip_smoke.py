@@ -38,6 +38,20 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 make_example size sharded against one card: bytes equal,
                 K1 launches == 2 x shards x batches. Phase 5 and every
                 later phase pass one explicit card (CARD).
+  5c. tracks  — the float-track step API at full width: the first two
+                batches of phase 5's windows on the frags wire
+                ([64, 251, 1536] rasters) through phase 5's engine
+                (full_step_frags): NucTracks.norm bit-equal to the run
+                path's f32 norm (the pool wire's raster, the same K2
+                launch), within nuc.exact_tol of float64 on one batch;
+                OccTracks occ/lower/upper equal to run_step_pool2's picks
+                wherever both certify; one K2 launch per call. Then
+                sharded_full_step over every visible card, or [cuda:0,
+                cuda:0]: every field bit-equal to one device, K2 launches
+                == shards x calls; dryrun_multichip over the same devices
+                (K2 once, K1 twice per shard; norm within 1e-3 of the f64
+                mirror). full_step_frags and run_step_pool2 timed per
+                batch, inputs resident.
   6. parity   — the same small run on cuda and on cpu (plain versions):
                 output rows equal, signal tracks within nuc.exact_tol.
   7. stages   — `nucleoatac-torch occ`, `nuc`, `merge`, `nfr` (the
@@ -88,7 +102,8 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 exists and names nuc_scores_kernel.
 Then one JSON line of kernel records (K2's launches from phase 5, K1's
 from phase 8, and each kernel's launches on every path that ran it,
-phase 5b's sharded runs and phase 8b's wires included) and as
+phase 5b's sharded runs, phase 5c's tracks and phase 8b's wires
+included) and as
 the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX (``jax`` is blocked in this process) and nothing of
@@ -595,7 +610,8 @@ def phase_run(data: dict) -> dict:
           f"launches {launches}; occ spot-check positions "
           f"{res.occ_stage.n_spot_checked}")
     return {"prefix": prefix, "launches": launches, "steps": steps,
-            "windows": windows, "max_qstep": res.nuc_stage.max_qstep}
+            "windows": windows, "max_qstep": res.nuc_stage.max_qstep,
+            "engine": res.engine, "mix": res.occ.mix, "fs": res.occ.fragmentsizes}
 
 
 def phase_devices(data: dict, run5: dict) -> dict:
@@ -686,6 +702,140 @@ def phase_devices(data: dict, run5: dict) -> dict:
           f"byte-equal to {CARD} alone; {smi()}")
     return {"nuc_scores": launches["nuc_scores"], "diag_xcorr": k1, "wall_s": wall,
             "shards": shards, "chain_ms": chain_ms}
+
+
+def phase_tracks(data: dict, run5: dict, n_batches: int = 2) -> dict:
+    """The float-track step API at full width: the first batches of phase
+    5's windows on the frags wire ([64, 251, 1536] rasters) through phase
+    5's engine (full_step_frags), held to the run path on the same windows
+    (the pool wire, run_step_pool2); then sharded_full_step and
+    dryrun_multichip over every visible card or [cuda:0, cuda:0]. Returns
+    each path's launches and the times."""
+    import numpy as np
+    import torch
+
+    from nucleoatac_torch.config import RunConfig
+    from nucleoatac_torch.core.chunk import ChunkList
+    from nucleoatac_torch.entry import dryrun_multichip
+    from nucleoatac_torch.io.bam import scan_bam
+    from nucleoatac_torch.io.fasta import FastaFile
+    from nucleoatac_torch.models import data as tdata
+    from nucleoatac_torch.models.engine import TorchEngine
+    from nucleoatac_torch.models.nuc import SeqCodesProvider
+    from nucleoatac_torch.ops import nuc_scores as k2
+    from nucleoatac_torch.ops.biasmat import bias_mat_batch
+    from nucleoatac_torch.parallel import local_devices, sharded_full_step
+
+    t_phase = time.perf_counter()
+    cfg, eng = RunConfig(), run5["engine"]
+    B, W, dev = cfg.window.batch, eng.width, eng.device
+    frags = scan_bam(data["bam"], cfg.ingest)
+    chunks = ChunkList.read(data["bed"], frags.chrom_dict).merge()
+    tiles = tdata.tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)[:n_batches * B]
+    seq = SeqCodesProvider(FastaFile(data["fasta"]), chunks, eng, B)
+    t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    batches = []
+    for b in tdata.make_batches(frags, tiles, W, B):
+        codes = seq.rows(b.meta)
+        batches.append(([t(a) for a in (b.mids, b.sizes, b.valid)],
+                        eng._logbias_seq(t(codes)), b.meta, codes))
+    if len(batches) != n_batches or any(len(m) != B for _, _, m, _ in batches):
+        raise AssertionError("tracks: expected full batches of phase 5's windows")
+
+    # the path: full_step_frags, one K2 launch per call
+    reset_launches()
+    tracks = [eng.full_step_frags(*frag, lb) for frag, lb, _, _ in batches]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"nuc_scores": n_batches, "diag_xcorr": 0}:
+        raise AssertionError(f"tracks: launches {launches} for {n_batches} calls")
+
+    # the same windows on the run path: one pool batch each
+    tol_occ, certified, err64 = cfg.occ.exact_tol, 0, None
+    vlo, vup = cfg.vmat.lower - cfg.sizes.lower, cfg.vmat.upper - cfg.sizes.lower
+    pool_args = []
+    for (frag, lb, meta, codes), (occ, nuc) in zip(batches, tracks):
+        (pb,) = tdata.make_pool_batches(frags, meta, W, B)
+        packed2, esc, ok = tdata.pack_2bit_codes(codes)
+        if not ok or list(pb.meta) != list(meta):
+            raise AssertionError("tracks: the pool batch holds other windows")
+        args = (t(pb.pool), t(pb.table), t(packed2), t(esc), pb.emax)
+        pool_args.append(args)
+        mat = eng._raster_pool(*args[:2], pb.emax)
+        norm_run = eng._scores(mat, eng._logbias_2bit(*args[2:4]))[0]
+        if not torch.equal(nuc.norm, norm_run):
+            raise AssertionError("tracks: NucTracks.norm differs from the run "
+                                 "path's f32 norm on the same windows")
+        idx, cert, _, _ = eng.unpack_run(eng.run_step_pool2(*args).cpu().numpy())
+        core = slice(eng.core_lo, eng.core_lo + eng.core)
+        o = [x[:, core].cpu().numpy() for x in occ]
+        both = cert & (o[4] > tol_occ) & (o[5] > tol_occ)
+        if both.mean() < 0.5:
+            raise AssertionError(f"tracks: {both.mean():.3f} of the core certified")
+        for c in range(3):
+            if not np.array_equal(eng.alpha_grid[idx[:, c]][both], o[c][both]):
+                raise AssertionError(f"tracks: OccTracks.{occ._fields[c]} differs "
+                                     "from the run path's certified picks")
+        certified += int(both.sum())
+        if err64 is None:  # the norm of one batch against float64
+            q64 = torch.as_tensor(eng.size_probs64, device=dev)
+            b0_64 = bias_mat_batch(lb.double(), q64, cfg.vmat.lower, cfg.vmat.upper,
+                                   eng.core_lo, eng.core_hi)
+            ref64 = k2.nuc_scores_plain(
+                mat[:, vlo:vup].double(), b0_64,
+                *[x.double() for x in eng.tables["_diag_kernels"]], cfg.nuc.var_floor)
+            err64 = float((nuc.norm.double() - ref64[:, 0]).abs().max())
+            if err64 > cfg.nuc.exact_tol:
+                raise AssertionError(f"tracks: max|norm - f64| {err64:.3e} > "
+                                     f"nuc.exact_tol {cfg.nuc.exact_tol}")
+
+    # sharded_full_step over every visible card, or two shards on cuda:0
+    cards = torch.cuda.device_count()
+    devs = local_devices() if cards > 1 else [CARD, CARD]
+    seng = TorchEngine(cfg, run5["mix"], run5["fs"], eng.vmat, pwm=eng.pwm, device=devs)
+    shards = len(seng.devices)
+    reset_launches()
+    sharded = [sharded_full_step(seng)(*frag, lb) for frag, lb, _, _ in batches]
+    torch.cuda.synchronize()
+    sharded_launches = read_launches()
+    if sharded_launches != {"nuc_scores": shards * n_batches, "diag_xcorr": 0}:
+        raise AssertionError(f"tracks: sharded launches {sharded_launches} for "
+                             f"{shards} shards x {n_batches} calls")
+    for got, want in zip(sharded, tracks):
+        for a, b in zip(got, want):
+            for f, x, y in zip(b._fields, a, b):
+                if x.device != dev or not torch.equal(x, y):
+                    raise AssertionError(f"tracks: sharded {type(b).__name__}.{f} "
+                                         "differs from one device's")
+
+    # the dry run over the same devices: K2 once and K1 twice per shard
+    reset_launches()
+    dry = dryrun_multichip(shards, device=devs)
+    torch.cuda.synchronize()
+    dry_launches = read_launches()
+    if dry_launches != {"nuc_scores": shards, "diag_xcorr": 2 * shards}:
+        raise AssertionError(f"tracks: dry run launches {dry_launches}, {shards} shards")
+
+    # one 64-window batch, inputs resident: the float tracks beside the
+    # run path's chain, in one call
+    frag, lb, _, _ = batches[0]
+    ms = {"full_step_frags": cuda_ms(lambda: eng.full_step_frags(*frag, lb)),
+          "run_step_pool2": cuda_ms(lambda: eng.run_step_pool2(*pool_args[0]))}
+    wall = time.perf_counter() - t_phase
+    phase("tracks", f"full_step_frags on {n_batches} batches of {B} windows "
+          f"[{B}, {cfg.sizes.upper - cfg.sizes.lower}, {W}]: norm bit-equal to the run "
+          f"path's, max|norm-f64| {err64:.3e}; occ/lower/upper equal to run_step_pool2's "
+          f"picks at {certified} certified positions; launches {launches}; "
+          f"sharded_full_step on {','.join(map(str, seng.devices))}: every field "
+          f"bit-equal, launches {sharded_launches}; dryrun_multichip({shards}): "
+          f"max|norm-f64 mirror| {dry['mirror_err']:.3e} (bar 1e-3), launches "
+          f"{dry_launches}; per batch, inputs resident: full_step_frags "
+          f"{ms['full_step_frags']:.3f} ms, run_step_pool2 {ms['run_step_pool2']:.3f} ms; "
+          f"phase {wall:.1f} s; {smi()}")
+    return {"nuc_scores": launches["nuc_scores"],
+            "nuc_scores_sharded": sharded_launches["nuc_scores"],
+            "nuc_scores_dryrun": dry_launches["nuc_scores"],
+            "diag_xcorr_dryrun": dry_launches["diag_xcorr"], "ms": ms}
 
 
 def phase_parity() -> None:
@@ -1435,6 +1585,7 @@ def main() -> int:
         data = make_dataset(d)
         run5 = phase_run(data)
         devices = phase_devices(data, run5)
+        tracks = phase_tracks(data, run5)
         phase_parity()
         stages_k2 = phase_stages(data, run5)
         k1_launches = phase_conv(data, run5)
@@ -1452,10 +1603,14 @@ def main() -> int:
                 "diag_xcorr": k1_launches}
     by_path = {
         "nuc_scores": {"run": launches["nuc_scores"], "devices": devices["nuc_scores"],
+                       "tracks": tracks["nuc_scores"],
+                       "tracks_sharded": tracks["nuc_scores_sharded"],
+                       "tracks_dryrun": tracks["nuc_scores_dryrun"],
                        "stages": stages_k2,
                        "hosts": hosts["nuc_scores"], "nonexact": nonexact["nuc_scores"],
                        **wires["nuc_scores"]},
         "diag_xcorr": {"conv": k1_launches, "devices_diag_pallas": devices["diag_xcorr"],
+                       "tracks_dryrun": tracks["diag_xcorr_dryrun"],
                        "nonexact_diag_pallas": nonexact["diag_xcorr"],
                        **wires["diag_xcorr"]},
     }

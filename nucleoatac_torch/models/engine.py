@@ -20,6 +20,12 @@ f32 signal, lr and fuzz tracks the host selection reads. The delta12
 compositions keep the reference's entry-point names (occ_step_delta12_*,
 nuc_step_delta12_*).
 
+The float-track steps (occ_step*, nuc_step*, full_step*) are the
+reference's public step API: OccTracks / NucTracks of [B, W] tensors from
+a dense raster or a wire's raster, on the same stage functions. The
+reference's full_impl* / occ_impl / nuc_impl are these steps before jit;
+here the *_step forms stand for them.
+
 The template xcorr follows ``cfg.window.conv``: "diag" runs the K2 kernel
 (ops/nuc_scores.py, xcorr and epilogue in one launch); "diag_pallas" runs
 two K1 launches (ops/diag_xcorr.py) and the epilogue as torch ops, as the
@@ -57,7 +63,11 @@ from nucleoatac_torch.models.params import (
 from nucleoatac_torch.ops.biasmat import bias_mat_batch
 from nucleoatac_torch.ops.diag_xcorr import nuc_conv_outputs
 from nucleoatac_torch.ops.nuc_scores import nuc_scores
-from nucleoatac_torch.ops.occupancy import occupancy_packed2, occupancy_packed3
+from nucleoatac_torch.ops.occupancy import (
+    occupancy_batch,
+    occupancy_packed2,
+    occupancy_packed3,
+)
 from nucleoatac_torch.ops.pwmseq import (
     pwm_bias_batch,
     unpack_2bit_codes,
@@ -75,6 +85,27 @@ from nucleoatac_torch.ops.xcorr import finish_scores, nuc_conv_outputs_direct, p
 
 # template-xcorr routes by cfg.window.conv
 CONV_ROUTES = ("diag", "diag_pallas", "direct")
+
+
+class OccTracks(NamedTuple):
+    """Per-bp occupancy tracks, each [B, W] (the reference's OccTracks)."""
+    occ: torch.Tensor
+    lower: torch.Tensor
+    upper: torch.Tensor
+    n: torch.Tensor
+    margin: torch.Tensor  # f64-certification margins; see ops/occupancy.py
+    ci_margin: torch.Tensor
+
+
+class NucTracks(NamedTuple):
+    """Per-bp nucleosome score tracks, each f32 [B, W] (the reference's
+    NucTracks)."""
+    norm: torch.Tensor
+    norm_smooth: torch.Tensor
+    signal: torch.Tensor
+    lr: torch.Tensor
+    fuzz: torch.Tensor
+    n: torch.Tensor
 
 
 class Replicated(dict):
@@ -178,16 +209,17 @@ class TorchEngine:
         return Replicated({d: _upload(a, d) for d in self._tables})
 
     def shard(self, chain, *args):
-        """``chain(*args)`` over the engine's devices, as one tensor in
-        window order on the first device. Arguments: host arrays and
-        tensors (window axis first), a Replicated, an Escapes, or other
-        values passed as they are. One device: ``chain`` on the whole
-        batch, host arrays uploaded. n devices: device i gets windows
-        [i*B/n, (i+1)*B/n) of each array, its own Replicated copy and the
-        escapes of its rows rebased, and its chain runs with it as the
-        current device, on its current stream; the outputs are copied to
-        the first device (peer copies that order both cards' streams)
-        and concatenated."""
+        """``chain(*args)`` over the engine's devices, as one output in
+        window order on the first device: a tensor, or a tuple or
+        NamedTuple of them (nested) gathered field by field, keeping its
+        type. Arguments: host arrays and tensors (window axis first), a
+        Replicated, an Escapes, or other values passed as they are. One
+        device: ``chain`` on the whole batch, host arrays uploaded. n
+        devices: device i gets windows [i*B/n, (i+1)*B/n) of each array,
+        its own Replicated copy and the escapes of its rows rebased, and
+        its chain runs with it as the current device, on its current
+        stream; the outputs are copied to the first device (peer copies
+        that order both cards' streams) and concatenated."""
         if len(self.devices) == 1:
             dev = self.device
             return chain(*(
@@ -219,7 +251,15 @@ class TorchEngine:
 
             with _on(dev):
                 outs.append(chain(*(part(a) for a in args)))
-        return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
+        return self._gather(outs)
+
+    def _gather(self, outs):
+        """Per-shard outputs -> one on the first device, in window order."""
+        o = outs[0]
+        if isinstance(o, torch.Tensor):
+            return torch.cat([x.to(self.device, non_blocking=True) for x in outs])
+        fields = [self._gather(list(f)) for f in zip(*outs)]
+        return type(o)(*fields) if hasattr(o, "_fields") else type(o)(fields)
 
     # ---------------- chain stages ------------------------------------
     def _raster_pool(self, pool, table, emax: int):
@@ -295,7 +335,7 @@ class TorchEngine:
         )
 
     def _scores(self, mat, log_bias):
-        """(norm, signal, lr, fuzz), each f32 [B, W], on the configured
+        """(norm, signal, lr, fuzz, n), each f32 [B, W], on the configured
         xcorr route; every route gives 0 where n = 0. The nuc-range rows of
         the raster go to the kernels as a batch-strided view (no copy).
         Counts one nuc batch."""
@@ -307,7 +347,7 @@ class TorchEngine:
         tabs = tables["_diag_kernels"]
         if self.conv == "diag":  # one K2 launch: xcorr and epilogue
             k2 = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)
-            return k2[:, 0], k2[:, 1], k2[:, 2], k2[:, 3]
+            return k2[:, 0], k2[:, 1], k2[:, 2], k2[:, 3], k2[:, 4]
         if self.conv == "diag_pallas":  # two K1 launches
             fo, bo = nuc_conv_outputs(fmat, b0, *tabs)
         else:  # "direct": two conv1d calls over the build_kernels stacks
@@ -321,7 +361,7 @@ class TorchEngine:
             pad_valid(fo, self.width, K), pad_valid(bo, self.width, K),
             self.cfg.nuc.var_floor,
         )
-        return sc.norm, sc.signal, sc.lr, sc.fuzz
+        return sc.norm, sc.signal, sc.lr, sc.fuzz, sc.n
 
     def _nucm(self, mat, log_bias):
         """f32 [B, core + 2m] norm with smooth margins."""
@@ -333,9 +373,26 @@ class TorchEngine:
         """f32 [B, 5, W] (norm, norm_smooth, signal, lr, fuzz) over the
         whole window (non-exact mode); under "diag" K2's channels
         reordered, the reference's use_pallas form."""
-        norm, signal, lr, fuzz = self._scores(mat, log_bias)
+        t = self._nuc_tracks(mat, log_bias)
+        return torch.stack(t[:5], dim=1)
+
+    def _occ_tracks(self, mat) -> OccTracks:
+        """Float occupancy tracks over the whole window (counts cast to
+        f32, as a host-rasterized int16 raster needs)."""
+        p, tab = self.cfg.occ, self._tab(mat)
+        return OccTracks(*occupancy_batch(
+            mat.to(torch.float32), tab["log_mix"], tab["alpha_grid"], p.flank,
+            p.ci_drop))
+
+    def _nuc_tracks(self, mat, log_bias) -> NucTracks:
+        """_scores (one nuc batch) plus the gaussian-smoothed norm."""
+        norm, signal, lr, fuzz, n = self._scores(mat.to(torch.float32), log_bias)
         smooth = gauss_smooth_batch(norm, self._tab(norm)["smooth_kernel"])
-        return torch.stack([norm, smooth, signal, lr, fuzz], dim=1)
+        return NucTracks(norm, smooth, signal, lr, fuzz, n)
+
+    def _full_tracks(self, mat, log_bias):
+        mat = mat.to(torch.float32)  # one cast for both branches
+        return self._occ_tracks(mat), self._nuc_tracks(mat, log_bias)
 
     def _nucm16(self, mat, log_bias):
         """u16-packed _nucm: the fused and the standalone nuc paths both
@@ -433,6 +490,77 @@ class TorchEngine:
         """Non-exact nuc from an uploaded f32 log-bias row [B, W]."""
         return self.shard(lambda b, lb: self._nuc5(self._raster_delta12(b), lb),
                           buf, log_bias)
+
+    # ---------------- float-track steps -------------------------------
+    # OccTracks / NucTracks over the whole window, from a dense [B, S, W]
+    # raster (int16 or f32 counts) or from a wire's raster; each nuc or
+    # full call counts one nuc step per shard.
+    def occ_step(self, mat) -> OccTracks:
+        return self.shard(self._occ_tracks, mat)
+
+    def nuc_step(self, mat, log_bias) -> NucTracks:
+        return self.shard(self._nuc_tracks, mat, log_bias)
+
+    def full_step(self, mat, log_bias):
+        """(OccTracks, NucTracks) of one raster."""
+        return self.shard(self._full_tracks, mat, log_bias)
+
+    # fragment lists: [B, F] midpoints, sizes and validity
+    def occ_step_frags(self, mids, sizes, valid) -> OccTracks:
+        return self.shard(lambda m, s, v: self._occ_tracks(self._raster_frags(m, s, v)),
+                          mids, sizes, valid)
+
+    def nuc_step_frags(self, mids, sizes, valid, log_bias) -> NucTracks:
+        return self.shard(
+            lambda m, s, v, lb: self._nuc_tracks(self._raster_frags(m, s, v), lb),
+            mids, sizes, valid, log_bias)
+
+    def full_step_frags(self, mids, sizes, valid, log_bias):
+        return self.shard(
+            lambda m, s, v, lb: self._full_tracks(self._raster_frags(m, s, v), lb),
+            mids, sizes, valid, log_bias)
+
+    # packed (size << 16) | mid words [B, F], with an f32 log-bias row or
+    # plain uint8 sequence codes [B, W + L - 1]
+    def occ_step_packed(self, packed) -> OccTracks:
+        return self.shard(lambda p: self._occ_tracks(self._raster_packed(p)), packed)
+
+    def nuc_step_packed(self, packed, log_bias) -> NucTracks:
+        return self.shard(lambda p, lb: self._nuc_tracks(self._raster_packed(p), lb),
+                          packed, log_bias)
+
+    def full_step_packed(self, packed, log_bias):
+        return self.shard(lambda p, lb: self._full_tracks(self._raster_packed(p), lb),
+                          packed, log_bias)
+
+    def nuc_step_packed_seq(self, packed, codes) -> NucTracks:
+        return self.shard(
+            lambda p, c: self._nuc_tracks(self._raster_packed(p), self._logbias_seq(c)),
+            packed, codes)
+
+    def full_step_packed_seq(self, packed, codes):
+        return self.shard(
+            lambda p, c: self._full_tracks(self._raster_packed(p), self._logbias_seq(c)),
+            packed, codes)
+
+    # 2-byte (delta, size) pairs [B, F, 2], with an f32 log-bias row or
+    # nibble-packed sequence codes
+    def occ_step_delta(self, db) -> OccTracks:
+        return self.shard(lambda d: self._occ_tracks(self._raster_delta(d)), db)
+
+    def nuc_step_delta(self, db, log_bias) -> NucTracks:
+        return self.shard(lambda d, lb: self._nuc_tracks(self._raster_delta(d), lb),
+                          db, log_bias)
+
+    def nuc_step_delta_seq(self, db, packed_codes) -> NucTracks:
+        return self.shard(
+            lambda d, c: self._nuc_tracks(self._raster_delta(d), self._logbias_nib(c)),
+            db, packed_codes)
+
+    def full_step_delta_seq(self, db, packed_codes):
+        return self.shard(
+            lambda d, c: self._full_tracks(self._raster_delta(d), self._logbias_nib(c)),
+            db, packed_codes)
 
     # ---------------- host decoders (the reference's, verbatim) --------
     def unpack_run(self, buf: np.ndarray):

@@ -22,12 +22,13 @@ def gauss_kernel(sd: float) -> np.ndarray:
 def gauss_smooth_batch(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """x: [B, W]; kernel: [K] (odd), on x's device. Returns [B, W].
 
-    conv1d cross-correlates, so the kernel is flipped as the reference
-    flips it (a no-op for a gaussian). The caller's device must carry
-    device.py's precision flags: a TF32 convolution would move the
-    smoothed track past nuc.exact_tol."""
-    hw = kernel.shape[0] // 2
-    out = torch.nn.functional.conv1d(
-        x[:, None, :], kernel.flip(0)[None, None, :].to(x.dtype), padding=hw
-    )
-    return out[:, 0, :]
+    The zero-padded 'same' cross-correlation with the flipped kernel (as
+    the reference flips it; a no-op for a gaussian): products and the sum
+    over the taps in float64, rounded once to x's dtype, so a row's bits
+    do not depend on how many rows the call holds. As a float32
+    ``conv1d`` they did: one window alone and the same window in a batch
+    of eight gave other bits on the CPU, so a sharded step's smoothed
+    track differed from one device's."""
+    K = kernel.shape[0]
+    win = torch.nn.functional.pad(x, (K // 2, K // 2)).unfold(1, K, 1).double()
+    return (win * kernel.flip(0).double()).sum(dim=-1).to(x.dtype)

@@ -6,8 +6,10 @@ ops/nuc_scores.py): the CPU path runs them, the kernel tests and
 chip_smoke.py compare the kernels against them, and on a CUDA tensor
 nothing on the main path calls them. The one library convolution is the
 ``conv="direct"`` route (conv_stack_direct), which the reference also
-leaves to its compiler's convolution. Matmuls and convolutions run in
-full float32 (device.set_precision_flags).
+leaves to its compiler's convolution. It runs in full float32
+(device.set_precision_flags); the stacks of the kernels' plain versions
+sum in float64 and round once, so their bits do not depend on the batch
+or the thread count.
 """
 from __future__ import annotations
 
@@ -86,17 +88,23 @@ def nuc_conv_outputs_direct(frag_mat, b0, f_kernels, b_kernels):
 def conv_stack_diag(x: torch.Tensor, k2d: torch.Tensor) -> torch.Tensor:
     """[B, S, W] (x) [C, K, S] -> [B, C, W-K+1] valid xcorr: one batched
     matmul H[b, c*K+k, w] = sum_s k2d[c, k, s] x[b, s, w], then the sum of
-    H's K diagonals read through a strided view (row k shifted by k)."""
+    H's K diagonals read through a strided view (row k shifted by k).
+    Products and sums in float64, rounded once to x's dtype: a float32
+    GEMM's summation order is the BLAS library's choice, which may follow
+    its shape (a shard's window count) or thread split, while the float64
+    sums round to one float32 but at near-ties (relative error ~1e-14
+    against f32's half-ulp of 6e-8)."""
     B, S, W = x.shape
     C, K, S2 = k2d.shape
     if S2 != S:
         raise ValueError(f"k2d size axis {S2} != x size axis {S}")
     Wo = W - K + 1
-    H = torch.einsum("ks,bsw->bkw", k2d.reshape(C * K, S), x).contiguous()
+    H = torch.einsum("ks,bsw->bkw", k2d.reshape(C * K, S).double(),
+                     x.double()).contiguous()
     diag = H.as_strided(
         (B, C, K, Wo), (C * K * W, K * W, W + 1, 1), H.storage_offset()
     )
-    return diag.sum(dim=2)
+    return diag.sum(dim=2).to(x.dtype)
 
 
 def conv1d_stack(x: torch.Tensor, kerns: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The devices of a process, and the one collective reduction.
+"""The devices of a process, the sharded fused step and the one collective
+reduction.
 
 Counterpart of nucleoatac_tpu/parallel/mesh.py and of
 nucleoatac_tpu/models/pipeline.py :: auto_mesh. The reference shards each
@@ -116,3 +117,17 @@ def sharded_size_histogram(
         dist.all_reduce(host)
         hist = host.to(hist.device)
     return hist
+
+
+def sharded_full_step(engine):
+    """The fused occ+nuc step with windows sharded over ``engine``'s
+    devices: counterpart of the reference's sharded_full_step(engine,
+    mesh), whose mesh is here the engine's device list (TorchEngine(...,
+    device=[...]) or auto_devices). Returns ``(mids, sizes, valid,
+    log_bias) -> (OccTracks, NucTracks)``: each device rasterizes and
+    scores its contiguous slice of the windows with its own copy of the
+    tables (replicated), and the tracks are gathered in window order on
+    the first device. Arguments are [B, F] fragment lists and a [B, W]
+    f32 log-bias row, host arrays or tensors; B must divide over the
+    devices."""
+    return engine.full_step_frags

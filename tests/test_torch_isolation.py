@@ -1,8 +1,8 @@
 """nucleoatac_torch stands alone: in a process where `import jax` and
 `import nucleoatac_tpu` both fail, every module imports,
 run_pipeline(device='cpu') completes on the synthetic example in exact and
-non-exact mode, and so do the two command lines and a one-host
-`run --num_hosts 1 --host_id 0` (with matplotlib blocked too, as on a
+non-exact mode, and so do the two command lines, a one-host
+`run --num_hosts 1 --host_id 0` and the entry points of entry.py (with matplotlib blocked too, as on a
 machine without it, under --no_plots). The example data is written by this
 test process before the blocked one starts. No module of the port (nor
 chip_smoke.py) names the JAX package in an import; the port's copied
@@ -81,6 +81,7 @@ PORT_MODULES = [
     "nucleoatac_torch.cli",
     "nucleoatac_torch.cli.nucleoatac",
     "nucleoatac_torch.cli.pyatac",
+    "nucleoatac_torch.entry",
 ]
 
 
@@ -211,6 +212,25 @@ def _jax_package_imports(path: str) -> list:
         bad += [f"{path}:{node.lineno} {n}" for n in names
                 if n == "nucleoatac_tpu" or n.startswith("nucleoatac_tpu.")]
     return bad
+
+
+def test_entry_points_without_jax(tmp_path):
+    """entry() and dryrun_multichip over two CPU shards, which hold the
+    sharded float-track step against the port's own float64 mirror."""
+    out = _run_without_jax(
+        """
+        import torch
+        from nucleoatac_torch.entry import dryrun_multichip, entry
+        fn, args = entry(device="cpu")
+        occ, nuc = fn(*args)
+        assert all(bool(torch.isfinite(t).all()) for t in (*occ, *nuc))
+        print("mirror", dryrun_multichip(2, device="cpu")["mirror_err"] <= 1e-3)
+        assert not [m for m in sys.modules if m.startswith(("jax", "nucleoatac_tpu"))
+                    and sys.modules[m] is not None]
+        """,
+        tmp_path,
+    )
+    assert "mirror True" in out
 
 
 def test_no_port_module_imports_the_jax_package():
