@@ -50,8 +50,23 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 cuda:0]: every field bit-equal to one device, K2 launches
                 == shards x calls; dryrun_multichip over the same devices
                 (K2 once, K1 twice per shard; norm within 1e-3 of the f64
-                mirror). full_step_frags and run_step_pool2 timed per
-                batch, inputs resident.
+                mirror; then the chained run_step_delta12 at core 1024
+                sharded against one card, grid indices within 1, pool and
+                pool2 bytes equal to it; K2 4 x shards + 1 in all).
+                full_step_frags and run_step_pool2 timed per batch, inputs
+                resident.
+  5d. forms   — the rest of the reference's step API at full width: phase
+                5's first two batches on every wire (delta, delta12,
+                packed, frags, dense, pool). Every named download step
+                (occ _c, _c3, _p2; nuc _m, _m16, _m24, _c2, _c) and
+                run_step_delta/run_step_delta12 on the card, held on the
+                first batch against a CPU engine at the CPU tests' bars;
+                on the card delta12 == delta == pool == pool2 bytes, _m24
+                within 2^-16 relative of _m, v1 _c picks equal to v8's
+                where both certify, K2 launches == nuc calls; a
+                diag_pallas engine: K1 launches == 2 x nuc calls. The
+                fused delta steps timed per batch beside run_step_pool2,
+                inputs resident.
   6. parity   — the same small run on cuda and on cpu (plain versions):
                 output rows equal, signal tracks within nuc.exact_tol.
   7. stages   — `nucleoatac-torch occ`, `nuc`, `merge`, `nfr` (the
@@ -102,8 +117,8 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 exists and names nuc_scores_kernel.
 Then one JSON line of kernel records (K2's launches from phase 5, K1's
 from phase 8, and each kernel's launches on every path that ran it,
-phase 5b's sharded runs, phase 5c's tracks and phase 8b's wires
-included) and as
+phase 5b's sharded runs, phase 5c's tracks, phase 5d's forms and phase
+8b's wires included) and as
 the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX (``jax`` is blocked in this process) and nothing of
@@ -113,6 +128,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -808,12 +824,14 @@ def phase_tracks(data: dict, run5: dict, n_batches: int = 2) -> dict:
                     raise AssertionError(f"tracks: sharded {type(b).__name__}.{f} "
                                          "differs from one device's")
 
-    # the dry run over the same devices: K2 once and K1 twice per shard
+    # the dry run over the same devices: the fused step once per shard on
+    # K2 and twice on K1; the chained block's delta12, pool and pool2 steps
+    # once per shard and delta12 once on one device, all on K2
     reset_launches()
     dry = dryrun_multichip(shards, device=devs)
     torch.cuda.synchronize()
     dry_launches = read_launches()
-    if dry_launches != {"nuc_scores": shards, "diag_xcorr": 2 * shards}:
+    if dry_launches != {"nuc_scores": 4 * shards + 1, "diag_xcorr": 2 * shards}:
         raise AssertionError(f"tracks: dry run launches {dry_launches}, {shards} shards")
 
     # one 64-window batch, inputs resident: the float tracks beside the
@@ -828,7 +846,8 @@ def phase_tracks(data: dict, run5: dict, n_batches: int = 2) -> dict:
           f"picks at {certified} certified positions; launches {launches}; "
           f"sharded_full_step on {','.join(map(str, seng.devices))}: every field "
           f"bit-equal, launches {sharded_launches}; dryrun_multichip({shards}): "
-          f"max|norm-f64 mirror| {dry['mirror_err']:.3e} (bar 1e-3), launches "
+          f"max|norm-f64 mirror| {dry['mirror_err']:.3e} (bar 1e-3), chained delta12 "
+          f"{dry['delta12']} (pool, pool2 bytes equal), launches "
           f"{dry_launches}; per batch, inputs resident: full_step_frags "
           f"{ms['full_step_frags']:.3f} ms, run_step_pool2 {ms['run_step_pool2']:.3f} ms; "
           f"phase {wall:.1f} s; {smi()}")
@@ -836,6 +855,223 @@ def phase_tracks(data: dict, run5: dict, n_batches: int = 2) -> dict:
             "nuc_scores_sharded": sharded_launches["nuc_scores"],
             "nuc_scores_dryrun": dry_launches["nuc_scores"],
             "diag_xcorr_dryrun": dry_launches["diag_xcorr"], "ms": ms}
+
+
+FORM = re.compile(r"^(occ|nuc)_step_(?:(.+)_)?(c|c2|c3|p2|m|m16|m24)$")
+
+
+def _form_args(name: str, enc: dict, i: int) -> list:
+    """Host arguments of a named download step or fused step on batch i of
+    phase 5d's encodings: the wire's arrays, then the log-bias source
+    (nibble codes on delta/delta12/pool, plain codes on packed_seq, else
+    the f32 log-bias row), then emax on the pool wire."""
+    if name.startswith("run_step_"):
+        wire = name[len("run_step_"):]
+        return enc[wire][i] + [enc["nib"][i]]
+    branch, rest, _ = FORM.match(name).groups()
+    rest = rest or "dense"
+    wire = rest.replace("_seq", "")
+    args = list(enc[wire][i]) if wire != "pool" else list(enc["pool"][i][:2])
+    if branch == "nuc":
+        last = {"delta_seq": "nib", "delta12_seq": "nib", "pool_seq": "nib",
+                "packed_seq": "codes"}.get(rest, "log_bias")
+        args.append(enc[last][i])
+    return args + [enc["pool"][i][2]] if wire == "pool" else args
+
+
+def _hold_form(name: str, got, want, cpu_out: dict, eng, bars: dict) -> None:
+    """A named step's download on the card (got) against the same step on
+    the CPU engine (want), at the CPU tests' bars (tests/test_torch_forms.py,
+    tests/test_torch_transfer.py): occ grid indices equal wherever both
+    certify (v1: the flag agrees on more than half); f32 norm forms within
+    nuc.exact_tol; u16 forms within exact_tol + one step; u24 within
+    exact_tol + 2^-16 |x| of the CPU's f32 norm x; the [B, 5, W] tracks at
+    score_bars."""
+    import numpy as np
+
+    tol = eng.cfg.nuc.exact_tol
+    g, w = got.cpu().numpy(), want.numpy()
+    if g.shape != w.shape or g.dtype != w.dtype:
+        raise AssertionError(f"forms: {name} {g.shape} {g.dtype}, cpu {w.shape} {w.dtype}")
+    sfx = name.rsplit("_", 1)[1]
+    if name.startswith("run_step_"):
+        (gi, gc, gn, gq), (wi, wc, wn, wq) = eng.unpack_run(g), eng.unpack_run(w)
+        idx, both = (gi, wi), gc & wc
+        if not (np.abs(gn - wn) <= tol + np.maximum(gq, wq)[:, None]).all():
+            raise AssertionError(f"forms: {name} norm past exact_tol + one u16 step")
+    elif name.startswith("occ_"):
+        if sfx == "c":
+            both = (g[:, 3] == 1) & (w[:, 3] == 1)
+            if (g[:, 3] == w[:, 3]).mean() <= 0.5:
+                raise AssertionError(f"forms: {name} flags agree on half or less")
+            idx = (g[:, :3], w[:, :3])
+        elif sfx == "c3":
+            both = (g[:, 0] >> 7).astype(bool) & (w[:, 0] >> 7).astype(bool)
+            idx = (g & 0x7F, w & 0x7F)
+        else:
+            (gi, gc), (wi, wc) = eng.decode_occ2(g), eng.decode_occ2(w)
+            idx, both = (gi, wi), gc & wc
+    elif sfx in ("m", "c2"):
+        hold(f"forms: {name}", got.cpu(), want, 0.0, tol)
+        return
+    elif sfx == "m16":
+        (gn, gq), (wn, wq) = eng.f32_from_u16(g), eng.f32_from_u16(w)
+        if not (np.abs(gn - wn) <= tol + np.maximum(gq, wq)[:, None]).all():
+            raise AssertionError(f"forms: {name} past exact_tol + one u16 step")
+        return
+    elif sfx == "m24":
+        x = cpu_out[name[:-2]].numpy()
+        if not (np.abs(eng.f32_from_u24(g) - x) <= tol + 2.0 ** -16 * np.abs(x)).all():
+            raise AssertionError(f"forms: {name} past exact_tol + 2^-16 |x|")
+        return
+    else:  # "c": norm, norm_smooth, signal, lr, fuzz
+        for ch, (f, (rtol, atol)) in enumerate(bars.items()):
+            hold(f"forms: {name} {f}", got[:, ch].cpu(), want[:, ch], rtol, atol)
+        return
+    if both.mean() < 0.5:
+        raise AssertionError(f"forms: {name} certifies {both.mean():.3f} of the positions")
+    for c in range(3):
+        if not np.array_equal(idx[0][:, c][both], idx[1][:, c][both]):
+            raise AssertionError(f"forms: {name} grid indices differ where both certify")
+
+
+def phase_forms(data: dict, run5: dict, n_batches: int = 2) -> dict:
+    """The rest of the reference's step API at full width: phase 5's first
+    batches re-encoded on every wire (delta, delta12, packed, frags,
+    dense, pool; [64, 251, 1536] rasters). Every named download step and
+    both fused delta steps on the card through phase 5's engine; on the
+    first batch each is held against the same step on a CPU engine at the
+    CPU tests' bars (the CPU's plain path takes about half a second per nuc
+    call, so one batch keeps the phase short). On the card, every batch:
+    run_step_delta12, run_step_delta, run_step_pool and run_step_pool2
+    print one set of bytes; _m24 decodes within 2^-16 relative of _m; the
+    v1 _c indices equal the wire-v8 ones wherever both certify; one K2
+    launch per nuc call. A diag_pallas engine runs every nuc step of the
+    first batch: two K1 launches per call, no K2, the _m norms within
+    exact_tol of the CPU's. Then the three fused steps timed per batch,
+    inputs resident."""
+    import numpy as np
+    import torch
+
+    from nucleoatac_torch.config import RunConfig
+    from nucleoatac_torch.core.chunk import ChunkList
+    from nucleoatac_torch.io.bam import scan_bam
+    from nucleoatac_torch.io.fasta import FastaFile
+    from nucleoatac_torch.models import data as tdata
+    from nucleoatac_torch.models.engine import TorchEngine
+    from nucleoatac_torch.models.nuc import SeqCodesProvider
+
+    t_phase = time.perf_counter()
+    cfg, eng = RunConfig(), run5["engine"]
+    B, W = cfg.window.batch, eng.width
+    cpu = TorchEngine(cfg, run5["mix"], run5["fs"], eng.vmat, pwm=eng.pwm, device="cpu")
+    frags = scan_bam(data["bam"], cfg.ingest)
+    chunks = ChunkList.read(data["bed"], frags.chrom_dict).merge()
+    tiles = tdata.tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)[:n_batches * B]
+    lo, up = cfg.sizes.lower, cfg.sizes.upper
+    args = (frags, tiles, W, B)
+    batches = {
+        "delta": [([b.delta], b.meta) for b in tdata.make_delta_batches(*args)],
+        "delta12": [([b.buf], b.meta) for b in tdata.make_delta12_batches(*args)],
+        "packed": [([b.packed], b.meta) for b in tdata.make_packed_batches(*args)],
+        "frags": [([b.mids, b.sizes, b.valid], b.meta) for b in tdata.make_batches(*args)],
+        "dense": [([b.mats], b.meta) for b in tdata.make_dense_batches(*args, lo, up)],
+    }
+    metas = [m for _, m in batches["delta12"]]
+    enc = {w: [a for a, _ in v] for w, v in batches.items()}
+    enc["pool"] = [(pb.pool, pb.table, pb.emax) for m in metas
+                   for pb in tdata.make_pool_batches(frags, m, W, B)]
+    want = [list(m) for m in metas]
+    if len(metas) != n_batches or any(len(m) != B for m in metas) or \
+            len(enc["pool"]) != n_batches or \
+            any([list(m) for _, m in v] != want for v in batches.values()):
+        raise AssertionError("forms: the wires hold other windows than phase 5's "
+                             "first batches")
+    seq = SeqCodesProvider(FastaFile(data["fasta"]), chunks, eng, B)
+    enc["codes"] = [seq.rows(m) for m in metas]
+    enc["nib"] = [tdata.pack_nibble_codes(c) for c in enc["codes"]]
+    enc["log_bias"] = [cpu._logbias_seq(torch.from_numpy(c)).numpy() for c in enc["codes"]]
+    two_bit = [tdata.pack_2bit_codes(c) for c in enc["codes"]]
+    if not all(ok for _, _, ok in two_bit):
+        raise AssertionError("forms: a batch overflows the 2-bit escape list")
+
+    forms = sorted(n for n in dir(TorchEngine) if FORM.match(n))
+    names = forms + ["run_step_delta", "run_step_delta12"]
+    nuc_names = [n for n in names if not n.startswith("occ_")]
+
+    def t(a):  # an array on the card; emax stays an int
+        return torch.as_tensor(a).to(eng.device) if isinstance(a, np.ndarray) else a
+
+    # every step on the card, both batches; one K2 launch per nuc call
+    reset_launches()
+    steps0 = eng.steps
+    card = [{n: getattr(eng, n)(*map(t, _form_args(n, enc, i))) for n in names}
+            for i in range(n_batches)]
+    fused = [[out[n] for n in ("run_step_delta12", "run_step_delta")]
+             + [eng.run_step_pool(*map(t, enc["pool"][i][:2]), t(enc["nib"][i]),
+                                  enc["pool"][i][2]),
+                eng.run_step_pool2(*map(t, enc["pool"][i][:2]), t(two_bit[i][0]),
+                                   t(two_bit[i][1]), enc["pool"][i][2])]
+             for i, out in enumerate(card)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_nuc = n_batches * (len(nuc_names) + 2)
+    if launches != {"nuc_scores": n_nuc, "diag_xcorr": 0} or eng.steps - steps0 != n_nuc:
+        raise AssertionError(f"forms: launches {launches}, {eng.steps - steps0} steps "
+                             f"for {n_nuc} nuc calls")
+    core = slice(eng.core_lo, eng.core_lo + eng.core)
+    for i, out in enumerate(card):
+        if not all(torch.equal(x, fused[i][0]) for x in fused[i][1:]):
+            raise AssertionError("forms: run_step_delta12, run_step_delta, run_step_pool "
+                                 "and run_step_pool2 differ")
+        for n in [n for n in forms if n.endswith("_m24")]:
+            dec = torch.from_numpy(eng.f32_from_u24(out[n].cpu().numpy()))
+            hold(f"forms: {n} decoded", dec, out[n[:-2]].cpu(), 2.0 ** -16, 1e-30)
+        for n in ("occ_step_c", "occ_step_delta_c", "occ_step_packed_c"):
+            v1 = out[n].cpu().numpy()
+            idx, cert = eng.decode_occ2(out[n[:-1] + "p2"].cpu().numpy())
+            both = cert & (v1[:, 3, core] == 1)
+            if both.mean() < 0.5 or any(
+                    not np.array_equal(v1[:, c, core][both], idx[:, c][both])
+                    for c in range(3)):
+                raise AssertionError(f"forms: {n} differs from the wire-v8 picks")
+
+    # the first batch of every step on the CPU engine, at the CPU tests' bars
+    bars = score_bars(cfg.nuc.exact_tol)
+    cpu_out = {n: getattr(cpu, n)(*_form_args(n, enc, 0)) for n in names}
+    for n in names:
+        _hold_form(n, card[0][n], cpu_out[n], cpu_out, eng, bars)
+
+    # the K1 route: every nuc step of the first batch, two launches each
+    dp = TorchEngine(cfg, run5["mix"], run5["fs"], eng.vmat, pwm=eng.pwm, device=CARD,
+                     conv="diag_pallas")
+    reset_launches()
+    dp_out = {n: getattr(dp, n)(*map(t, _form_args(n, enc, 0))) for n in nuc_names}
+    torch.cuda.synchronize()
+    dp_launches = read_launches()
+    if dp_launches != {"nuc_scores": 0, "diag_xcorr": 2 * len(nuc_names)}:
+        raise AssertionError(f"forms: diag_pallas launches {dp_launches} for "
+                             f"{len(nuc_names)} nuc calls")
+    dp_err = max(hold(f"forms: diag_pallas {n}", dp_out[n].cpu(), cpu_out[n], 0.0,
+                      cfg.nuc.exact_tol) for n in nuc_names if n.endswith("_m"))
+
+    # one 64-window batch, inputs resident: the fused steps in one call
+    res = {n: [t(a) for a in _form_args(n, enc, 0)]
+           for n in ("run_step_delta12", "run_step_delta")}
+    pool_args = [*map(t, enc["pool"][0][:2]), t(two_bit[0][0]), t(two_bit[0][1]),
+                 enc["pool"][0][2]]
+    ms = {n: cuda_ms(lambda n=n: getattr(eng, n)(*res[n])) for n in res}
+    ms["run_step_pool2"] = cuda_ms(lambda: eng.run_step_pool2(*pool_args))
+    wall = time.perf_counter() - t_phase
+    phase("forms", f"{len(names)} steps ({len(nuc_names)} nuc) on {n_batches} batches of "
+          f"{B} windows on every wire: held to the CPU engine on the first; delta12, "
+          f"delta, pool, pool2 one set of bytes; _m24 within 2^-16 of _m; v1 picks equal "
+          f"to v8's; launches {launches}; diag_pallas {dp_launches}, max|_m - cpu| "
+          f"{dp_err:.3e}; per batch, inputs resident: run_step_delta12 "
+          f"{ms['run_step_delta12']:.3f} ms, run_step_delta {ms['run_step_delta']:.3f} ms, "
+          f"run_step_pool2 {ms['run_step_pool2']:.3f} ms; phase {wall:.1f} s; {smi()}")
+    return {"nuc_scores": launches["nuc_scores"], "diag_xcorr": dp_launches["diag_xcorr"],
+            "ms": ms, "wall_s": wall}
 
 
 def phase_parity() -> None:
@@ -1586,6 +1822,7 @@ def main() -> int:
         run5 = phase_run(data)
         devices = phase_devices(data, run5)
         tracks = phase_tracks(data, run5)
+        forms = phase_forms(data, run5)
         phase_parity()
         stages_k2 = phase_stages(data, run5)
         k1_launches = phase_conv(data, run5)
@@ -1606,11 +1843,12 @@ def main() -> int:
                        "tracks": tracks["nuc_scores"],
                        "tracks_sharded": tracks["nuc_scores_sharded"],
                        "tracks_dryrun": tracks["nuc_scores_dryrun"],
-                       "stages": stages_k2,
+                       "forms": forms["nuc_scores"], "stages": stages_k2,
                        "hosts": hosts["nuc_scores"], "nonexact": nonexact["nuc_scores"],
                        **wires["nuc_scores"]},
         "diag_xcorr": {"conv": k1_launches, "devices_diag_pallas": devices["diag_xcorr"],
                        "tracks_dryrun": tracks["diag_xcorr_dryrun"],
+                       "forms_diag_pallas": forms["diag_xcorr"],
                        "nonexact_diag_pallas": nonexact["diag_xcorr"],
                        **wires["diag_xcorr"]},
     }

@@ -10,15 +10,20 @@ Counterpart of nucleoatac_tpu/models/engine.py :: DeviceEngine for every
     -> template xcorr -> margin-extended norm -> u16 bytes  (exact nuc)
                       -> f32 [B, 5, W] score tracks         (non-exact nuc)
 
-The fused pass (run_step_pool*) packs both branches into one uint8 row per
-window. The two-pass stages (models/occ.py, models/nuc.py) compose one
-branch each from the same stage functions: a wire's raster, then
-_occ_packed2 (wire v8) or _nucm16 (u16 norm) in exact mode, so both paths
-quantize the same f32 norm. Non-exact mode (occ.exact / nuc.exact False)
-has no host refinisher: _occ_packed3 ships full CI indices and _nuc5 the
-f32 signal, lr and fuzz tracks the host selection reads. The delta12
-compositions keep the reference's entry-point names (occ_step_delta12_*,
-nuc_step_delta12_*).
+The fused steps (run_step_pool*, run_step_delta*) pack both branches into
+one uint8 row per window. The two-pass stages (models/occ.py,
+models/nuc.py) compose one branch each from the same stage functions: a
+wire's raster, then _occ_packed2 (wire v8) or _nucm16 (u16 norm) in exact
+mode, so both paths quantize the same f32 norm. Non-exact mode (occ.exact /
+nuc.exact False) has no host refinisher: _occ_packed3 ships full CI
+indices and _nuc5 the f32 signal, lr and fuzz tracks the host selection
+reads.
+
+The reference's named download steps (occ_step_<wire>_<form>,
+nuc_step_<wire>[_seq]_<form>) are built from tables: the wires' rasters
+and sequence-bias stages (_WIRES, _SEQ_BIAS) and each download form's
+finisher (_OCC_FORMS, _NUC_FORMS). Each name is a class attribute with the
+reference's arguments in the reference's order.
 
 The float-track steps (occ_step*, nuc_step*, full_step*) are the
 reference's public step API: OccTracks / NucTracks of [B, W] tensors from
@@ -26,7 +31,8 @@ a dense raster or a wire's raster, on the same stage functions. The
 reference's full_impl* / occ_impl / nuc_impl are these steps before jit;
 here the *_step forms stand for them.
 
-The template xcorr follows ``cfg.window.conv``: "diag" runs the K2 kernel
+The template xcorr follows ``cfg.window.conv``, unless ``use_pallas`` sends
+every route to K2 as the reference's switch does: "diag" runs the K2 kernel
 (ops/nuc_scores.py, xcorr and epilogue in one launch); "diag_pallas" runs
 two K1 launches (ops/diag_xcorr.py) and the epilogue as torch ops, as the
 reference's Pallas route does; "direct" runs the eight sums as two
@@ -45,6 +51,7 @@ chain on its card and gathers the outputs in window order on the first.
 from __future__ import annotations
 
 import contextlib
+import inspect
 from typing import NamedTuple
 
 import numpy as np
@@ -65,6 +72,7 @@ from nucleoatac_torch.ops.diag_xcorr import nuc_conv_outputs
 from nucleoatac_torch.ops.nuc_scores import nuc_scores
 from nucleoatac_torch.ops.occupancy import (
     occupancy_batch,
+    occupancy_packed,
     occupancy_packed2,
     occupancy_packed3,
 )
@@ -134,6 +142,83 @@ def _on(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
+# ---------------- the named download steps -----------------------------
+# wire -> (raster stage, the wire's arguments, what they hold)
+_WIRES = {
+    "dense": ("_dense", ("mat",), "host-rasterized counts [B, S, W]"),
+    "frags": ("_raster_frags", ("mids", "sizes", "valid"),
+              "[B, F] midpoints, sizes and validity"),
+    "packed": ("_raster_packed", ("packed",), "(size << 16) | mid words [B, F]"),
+    "delta": ("_raster_delta", ("db",), "2-byte (delta, size) pairs [B, F, 2]"),
+    "delta12": ("_raster_delta12", ("buf",), "wire-v6 12-bit records"),
+}
+# wire -> the stage that makes the log-bias row from sequence codes, the
+# argument that holds the codes and what they are (the "_seq" nuc forms;
+# the others take an f32 log-bias row)
+_SEQ_BIAS = {
+    "packed": ("_logbias_seq", "codes", "uint8 sequence codes [B, W + L - 1]"),
+    "delta": ("_logbias_nib", "packed_codes", "nibble-packed sequence codes"),
+    "delta12": ("_logbias_nib", "packed_codes", "nibble-packed sequence codes"),
+}
+# download form -> (finisher, what it downloads)
+_OCC_FORMS = {
+    "c": ("_occ_packed", "wire-v1 occ bytes uint8 [B, 4, W]"),
+    "c3": ("_occ_packed3", "wire-v2 occ bytes uint8 [B, 3, core]"),
+    "p2": ("_occ_packed2", "wire-v8 occ bytes uint8 [B, 2*core + ceil(core/4)]"),
+}
+_NUC_FORMS = {
+    "m": ("_nucm", "f32 norm with smooth margins [B, core + 2m] (wire v3)"),
+    "m16": ("_nucm16", "u16 norm with margins uint8 [B, 2(core + 2m) + 8] "
+                       "(wire v5; f32_from_u16 decodes it)"),
+    "m24": ("_nucm24", "u24 norm with margins uint8 [B, core + 2m, 3] "
+                       "(wire v4; f32_from_u24 decodes it)"),
+    "c2": ("_nuc2", "f32 norm and norm_smooth [B, 2, core] (wire v2)"),
+    "c": ("_nuc5", "f32 norm, norm_smooth, signal, lr and fuzz [B, 5, W]"),
+}
+
+
+def _named(step, name: str, params: tuple, doc: str):
+    """``step`` under ``name``, with the reference's parameters as its
+    signature (positional) and ``doc``."""
+    step.__name__, step.__qualname__, step.__doc__ = name, f"TorchEngine.{name}", doc
+    step.__signature__ = inspect.Signature(
+        [inspect.Parameter(p, inspect.Parameter.POSITIONAL_ONLY)
+         for p in ("self",) + params])
+    return step
+
+
+def _occ_step(wire: str, form: str):
+    """occ_step[_<wire>]_<form>: the wire's raster, then the form's occ
+    finisher, sharded."""
+    raster, params, holds = _WIRES[wire]
+    finish, downloads = _OCC_FORMS[form]
+
+    def step(self, *args):
+        ras, fin = getattr(self, raster), getattr(self, finish)
+        return self.shard(lambda *a: fin(ras(*a)), *args)
+
+    name = f"occ_step_{form}" if wire == "dense" else f"occ_step_{wire}_{form}"
+    return _named(step, name, params, f"{holds} -> {downloads}.")
+
+
+def _nuc_step(wire: str, form: str, seq: bool = False):
+    """nuc_step_<wire>[_seq]_<form>: the wire's raster and the log-bias
+    row (from sequence codes when ``seq``), then the form's nuc finisher
+    (one nuc step per shard), sharded."""
+    raster, params, holds = _WIRES[wire]
+    finish, downloads = _NUC_FORMS[form]
+    bias, last, bias_holds = (_SEQ_BIAS[wire] if seq
+                              else (None, "log_bias", "an f32 log-bias row [B, W]"))
+
+    def step(self, *args):
+        ras, fin = getattr(self, raster), getattr(self, finish)
+        row = getattr(self, bias) if bias else (lambda lb: lb)
+        return self.shard(lambda *a: fin(ras(*a[:-1]), row(a[-1])), *args)
+
+    name = f"nuc_step_{wire}{'_seq' if seq else ''}_{form}"
+    return _named(step, name, params + (last,), f"{holds} and {bias_holds} -> {downloads}.")
+
+
 class TorchEngine:
     def __init__(
         self,
@@ -145,17 +230,21 @@ class TorchEngine:
         device="cuda",
         tables: dict | None = None,
         conv: str | None = None,
+        use_pallas: bool = False,
     ):
         """``device`` is one device or a list of them (models/pipeline.py
         picks it with parallel/mesh.py :: auto_devices); a list shards
         each window batch in equal slices, one per entry (an entry may
         repeat). ``tables`` (numpy, by DeviceEngine attribute name; see
         models/params.py) replaces the tables built from mix/vmat/pwm.
-        ``conv`` (default ``cfg.window.conv``) picks the xcorr route."""
+        ``conv`` (default ``cfg.window.conv``) picks the xcorr route;
+        ``use_pallas`` runs every route's xcorr on K2, as the reference's
+        switch of that name runs its Pallas kernel."""
         self.cfg = cfg
         self.conv = conv or cfg.window.conv
         if self.conv not in CONV_ROUTES:
             raise ValueError(f"conv={self.conv!r}; expected one of {CONV_ROUTES}")
+        self.use_pallas = use_pallas
         devices = [device] if isinstance(device, (str, torch.device)) else list(device)
         self.devices = [resolve_device(d) for d in devices]
         if not self.devices or cfg.window.batch % len(self.devices):
@@ -320,6 +409,13 @@ class TorchEngine:
             p.ci_drop, p.exact_tol,
         )
 
+    def _occ_packed(self, mat):
+        """Wire v1 occ bytes: uint8 [B, 4, W] (argmax, CI-lower and CI-upper
+        grid indices, certified flag) over the whole window."""
+        p = self.cfg.occ
+        return occupancy_packed(mat, self._tab(mat)["log_mix"], p.flank, p.ci_drop,
+                                p.exact_tol)
+
     def _occ_packed3(self, mat):
         """Wire v2 occ bytes (non-exact mode): uint8 [B, 3, core]."""
         p = self.cfg.occ
@@ -336,16 +432,16 @@ class TorchEngine:
 
     def _scores(self, mat, log_bias):
         """(norm, signal, lr, fuzz, n), each f32 [B, W], on the configured
-        xcorr route; every route gives 0 where n = 0. The nuc-range rows of
-        the raster go to the kernels as a batch-strided view (no copy).
-        Counts one nuc batch."""
+        xcorr route (K2 on every route under use_pallas); every route
+        gives 0 where n = 0. The nuc-range rows of the raster go to the
+        kernels as a batch-strided view (no copy). Counts one nuc batch."""
         self.steps += 1
         vlo = self.cfg.vmat.lower - self.cfg.sizes.lower
         vup = self.cfg.vmat.upper - self.cfg.sizes.lower
         fmat, b0 = mat[:, vlo:vup], self._bias(log_bias)
         tables = self._tab(mat)
         tabs = tables["_diag_kernels"]
-        if self.conv == "diag":  # one K2 launch: xcorr and epilogue
+        if self.conv == "diag" or self.use_pallas:  # one K2 launch: xcorr and epilogue
             k2 = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)
             return k2[:, 0], k2[:, 1], k2[:, 2], k2[:, 3], k2[:, 4]
         if self.conv == "diag_pallas":  # two K1 launches
@@ -376,6 +472,11 @@ class TorchEngine:
         t = self._nuc_tracks(mat, log_bias)
         return torch.stack(t[:5], dim=1)
 
+    def _nuc2(self, mat, log_bias):
+        """f32 [B, 2, core] (norm, norm_smooth) over the core (wire v2)."""
+        t = self._nuc_tracks(mat, log_bias)
+        return torch.stack(t[:2], dim=1)[:, :, self.core_lo : self.core_lo + self.core]
+
     def _occ_tracks(self, mat) -> OccTracks:
         """Float occupancy tracks over the whole window (counts cast to
         f32, as a host-rasterized int16 raster needs)."""
@@ -398,6 +499,24 @@ class TorchEngine:
         """u16-packed _nucm: the fused and the standalone nuc paths both
         quantize through here, so equal rasters give equal bytes."""
         return self._u16(self._nucm(mat, log_bias))
+
+    def _nucm24(self, mat, log_bias):
+        """u24-packed _nucm (wire v4)."""
+        return self._u24(self._nucm(mat, log_bias))
+
+    @staticmethod
+    def _u24(x: torch.Tensor) -> torch.Tensor:
+        """f32 [..., N] -> uint8 [..., N, 3]: the low mantissa byte dropped
+        with round-to-nearest-magnitude (wire v4; relative error at most
+        2^-16), byte for byte the reference's engine._u24_impl. Its uint32
+        ``(u + 0x80) >> 8`` wraps mod 2^32; torch has no uint32 arithmetic,
+        so the word is widened to int64 and masked to 32 bits after the
+        add, which gives the same three bytes for every input, negative
+        values, infinities and NaN payloads included."""
+        u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        u = ((u + 0x80) & 0xFFFFFFFF) >> 8
+        return torch.stack([(u >> (8 * i)) & 0xFF for i in range(3)],
+                           dim=-1).to(torch.uint8)
 
     @staticmethod
     def _u16(x: torch.Tensor) -> torch.Tensor:
@@ -434,15 +553,18 @@ class TorchEngine:
     # ---------------- entry points ------------------------------------
     # Each takes host arrays or tensors (the pool as either, or as
     # replicate's Replicated) and shards them over the engine's devices.
+    def _run(self, mat, log_bias):
+        """The fused download of one raster: wire-v8 occ bytes, then the
+        u16 norm (one nuc step)."""
+        return self._pack_run(self._occ_packed2(mat), self._nucm16(mat, log_bias))
+
     def _run_pool(self, pool, table, packed_codes, emax):
-        mat = self._raster_pool(pool, table, emax)
-        occ2 = self._occ_packed2(mat)
-        return self._pack_run(occ2, self._nucm16(mat, self._logbias_nib(packed_codes)))
+        return self._run(self._raster_pool(pool, table, emax),
+                         self._logbias_nib(packed_codes))
 
     def _run_pool2(self, pool, table, packed2, esc, emax):
-        mat = self._raster_pool(pool, table, emax)
-        occ2 = self._occ_packed2(mat)
-        return self._pack_run(occ2, self._nucm16(mat, self._logbias_2bit(packed2, esc)))
+        return self._run(self._raster_pool(pool, table, emax),
+                         self._logbias_2bit(packed2, esc))
 
     def _pool(self, pool):
         return pool if isinstance(pool, Replicated) else self.replicate(pool)
@@ -458,38 +580,84 @@ class TorchEngine:
         return self.shard(self._run_pool2, self._pool(pool), table, packed2,
                           Escapes(esc, self.seq_codes_width()), emax)
 
-    def occ_step_delta12_p2(self, buf):
-        """Standalone occ: wire v6 records -> wire v8 occ bytes."""
-        return self.shard(lambda b: self._occ_packed2(self._raster_delta12(b)), buf)
-
-    def nuc_step_delta12_seq_m16(self, buf, packed_codes):
-        """Standalone nuc: wire v6 records + nibble sequence codes -> u16
-        norm with smooth margins."""
+    def run_step_delta(self, db, packed_codes):
+        """2-byte (delta, size) pairs + nibble sequence codes: run_step_pool's
+        bytes on the same windows (the reference's fused delta step)."""
         return self.shard(
-            lambda b, c: self._nucm16(self._raster_delta12(b), self._logbias_nib(c)),
+            lambda d, c: self._run(self._raster_delta(d), self._logbias_nib(c)),
+            db, packed_codes)
+
+    def run_step_delta12(self, buf, packed_codes):
+        """Wire v6 records + nibble sequence codes: run_step_pool's bytes on
+        the same windows (the reference's fused delta12 step)."""
+        return self.shard(
+            lambda b, c: self._run(self._raster_delta12(b), self._logbias_nib(c)),
             buf, packed_codes)
 
-    def nuc_step_delta12_m16(self, buf, log_bias):
-        """Standalone nuc from an uploaded f32 log-bias row [B, W] (the
-        ``--bias_track`` path, engine built without a PWM)."""
-        return self.shard(lambda b, lb: self._nucm16(self._raster_delta12(b), lb),
-                          buf, log_bias)
+    def occ_step_pool_p2(self, pool, table, emax: int):
+        """Wire v7 fragments -> wire-v8 occ bytes."""
+        return self.shard(lambda p, t: self._occ_packed2(self._raster_pool(p, t, emax)),
+                          self._pool(pool), table)
 
-    def occ_step_delta12_c3(self, buf):
-        """Non-exact occ: wire v6 records -> wire v2 occ bytes."""
-        return self.shard(lambda b: self._occ_packed3(self._raster_delta12(b)), buf)
-
-    def nuc_step_delta12_seq_c(self, buf, packed_codes):
-        """Non-exact nuc: wire v6 records + nibble sequence codes -> f32
-        [B, 5, W] score tracks."""
+    def nuc_step_pool_seq_m16(self, pool, table, packed_codes, emax: int):
+        """Wire v7 fragments + nibble sequence codes -> u16 norm with smooth
+        margins."""
         return self.shard(
-            lambda b, c: self._nuc5(self._raster_delta12(b), self._logbias_nib(c)),
-            buf, packed_codes)
+            lambda p, t, c: self._nucm16(self._raster_pool(p, t, emax),
+                                         self._logbias_nib(c)),
+            self._pool(pool), table, packed_codes)
 
-    def nuc_step_delta12_c(self, buf, log_bias):
-        """Non-exact nuc from an uploaded f32 log-bias row [B, W]."""
-        return self.shard(lambda b, lb: self._nuc5(self._raster_delta12(b), lb),
-                          buf, log_bias)
+    # the named download steps, from the module's tables
+    occ_step_c = _occ_step("dense", "c")
+    occ_step_delta_c = _occ_step("delta", "c")
+    occ_step_packed_c = _occ_step("packed", "c")
+    occ_step_c3 = _occ_step("dense", "c3")
+    occ_step_delta_c3 = _occ_step("delta", "c3")
+    occ_step_packed_c3 = _occ_step("packed", "c3")
+    occ_step_delta12_c3 = _occ_step("delta12", "c3")
+    occ_step_p2 = _occ_step("dense", "p2")
+    occ_step_delta_p2 = _occ_step("delta", "p2")
+    occ_step_packed_p2 = _occ_step("packed", "p2")
+    occ_step_delta12_p2 = _occ_step("delta12", "p2")
+
+    nuc_step_delta_seq_m = _nuc_step("delta", "m", seq=True)
+    nuc_step_delta_m = _nuc_step("delta", "m")
+    nuc_step_packed_seq_m = _nuc_step("packed", "m", seq=True)
+    nuc_step_packed_m = _nuc_step("packed", "m")
+    nuc_step_frags_m = _nuc_step("frags", "m")
+    nuc_step_dense_m = _nuc_step("dense", "m")
+
+    nuc_step_delta_seq_m16 = _nuc_step("delta", "m16", seq=True)
+    nuc_step_delta_m16 = _nuc_step("delta", "m16")
+    nuc_step_packed_seq_m16 = _nuc_step("packed", "m16", seq=True)
+    nuc_step_packed_m16 = _nuc_step("packed", "m16")
+    nuc_step_frags_m16 = _nuc_step("frags", "m16")
+    nuc_step_dense_m16 = _nuc_step("dense", "m16")
+    nuc_step_delta12_seq_m16 = _nuc_step("delta12", "m16", seq=True)
+    nuc_step_delta12_m16 = _nuc_step("delta12", "m16")
+
+    nuc_step_delta_seq_m24 = _nuc_step("delta", "m24", seq=True)
+    nuc_step_delta_m24 = _nuc_step("delta", "m24")
+    nuc_step_packed_seq_m24 = _nuc_step("packed", "m24", seq=True)
+    nuc_step_packed_m24 = _nuc_step("packed", "m24")
+    nuc_step_frags_m24 = _nuc_step("frags", "m24")
+    nuc_step_dense_m24 = _nuc_step("dense", "m24")
+
+    nuc_step_delta_seq_c2 = _nuc_step("delta", "c2", seq=True)
+    nuc_step_delta_c2 = _nuc_step("delta", "c2")
+    nuc_step_packed_seq_c2 = _nuc_step("packed", "c2", seq=True)
+    nuc_step_packed_c2 = _nuc_step("packed", "c2")
+    nuc_step_frags_c2 = _nuc_step("frags", "c2")
+    nuc_step_dense_c2 = _nuc_step("dense", "c2")
+
+    nuc_step_delta_seq_c = _nuc_step("delta", "c", seq=True)
+    nuc_step_delta_c = _nuc_step("delta", "c")
+    nuc_step_packed_seq_c = _nuc_step("packed", "c", seq=True)
+    nuc_step_packed_c = _nuc_step("packed", "c")
+    nuc_step_frags_c = _nuc_step("frags", "c")
+    nuc_step_dense_c = _nuc_step("dense", "c")
+    nuc_step_delta12_seq_c = _nuc_step("delta12", "c", seq=True)
+    nuc_step_delta12_c = _nuc_step("delta12", "c")
 
     # ---------------- float-track steps -------------------------------
     # OccTracks / NucTracks over the whole window, from a dense [B, S, W]
@@ -564,7 +732,7 @@ class TorchEngine:
 
     # ---------------- host decoders (the reference's, verbatim) --------
     def unpack_run(self, buf: np.ndarray):
-        """Host-side decode of run_step_pool* output (wire v5):
+        """Host decode of run_step_pool* and run_step_delta* output (wire v5):
         (idx int64 [B, 3, core] = decoded argmax/CI-lo/CI-up grid
         indices, cert bool [B, core], norm f32 [B, core+2m], qstep f64
         [B] = per-window norm quantization scale). Positions with
@@ -597,6 +765,16 @@ class TorchEngine:
         lo = best - lo_d
         up = np.minimum(best + up_d, G - 1)
         return np.stack([best, lo, up], axis=1), cert
+
+    @staticmethod
+    def f32_from_u24(b: np.ndarray) -> np.ndarray:
+        """Host decode of _u24 output: uint8 [..., N, 3] -> f32."""
+        u = (
+            b[..., 0].astype(np.uint32)
+            | (b[..., 1].astype(np.uint32) << 8)
+            | (b[..., 2].astype(np.uint32) << 16)
+        ) << 8
+        return u.view(np.float32)
 
     @staticmethod
     def f32_from_u16(buf: np.ndarray):

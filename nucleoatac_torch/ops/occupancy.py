@@ -6,7 +6,9 @@ matmul, then sum each position's window of 2*flank+1 projections
 DIRECTLY (an unfold of the zero-padded surface, summed) — not as a cumsum
 difference, whose cancellation costs ~1e-2 absolute on LL ~1e2 in f32.
 Tie rules follow the reference: argmax takes the first index; the CI's
-last index is an argmax over the flipped surface.
+last index is an argmax over the flipped surface. Three wire formats pack
+the picks: v1 (occupancy_packed, whole window), v2 (occupancy_packed3,
+core) and v8 (occupancy_packed2, core, CI bounds as deltas).
 """
 from __future__ import annotations
 
@@ -59,6 +61,35 @@ def _picks(ll: torch.Tensor, ci_drop: float):
     thr = llmax[..., None] - ci_drop
     ci_margin = torch.amin(torch.abs(ll - thr), dim=-1)
     return best, first, last, llmax, margin, ci_margin
+
+
+def occupancy_packed(
+    mat: torch.Tensor,  # [B, S, W] float32 counts (integer-valued)
+    log_mix: torch.Tensor,  # [S, G] float32
+    flank: int,
+    ci_drop: float = 1.92,
+    exact_tol: float = 0.05,
+) -> torch.Tensor:
+    """Wire format v1: uint8 [B, 4, W] over the whole window.
+
+    Channels: 0 = argmax grid index, 1 = CI-lower index, 2 = CI-upper
+    index, 3 = certified flag (both LL margins clear ``exact_tol``, or
+    the window is empty). An empty window reads (0, 0, G-1, 1)."""
+    G = log_mix.shape[1]
+    if G > 256:
+        raise ValueError(
+            f"grid size {G} > 256 overflows the uint8 grid-index wire format"
+        )
+    ll, n = _ll_and_n(mat, log_mix, flank)
+    best, first, last, _, margin, ci_margin = _picks(ll, ci_drop)
+    empty = n <= 0
+    certified = ((margin > exact_tol) & (ci_margin > exact_tol)) | empty
+    out = torch.stack(
+        [torch.where(empty, 0, best), torch.where(empty, 0, first),
+         torch.where(empty, G - 1, last), certified.long()],
+        dim=1,
+    )
+    return out.to(torch.uint8)
 
 
 def occupancy_packed3(

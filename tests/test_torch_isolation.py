@@ -216,7 +216,8 @@ def _jax_package_imports(path: str) -> list:
 
 def test_entry_points_without_jax(tmp_path):
     """entry() and dryrun_multichip over two CPU shards, which hold the
-    sharded float-track step against the port's own float64 mirror."""
+    sharded float-track step against the port's own float64 mirror and
+    run the chained delta12 block (pool wires bitwise equal to it)."""
     out = _run_without_jax(
         """
         import torch
@@ -224,13 +225,15 @@ def test_entry_points_without_jax(tmp_path):
         fn, args = entry(device="cpu")
         occ, nuc = fn(*args)
         assert all(bool(torch.isfinite(t).all()) for t in (*occ, *nuc))
-        print("mirror", dryrun_multichip(2, device="cpu")["mirror_err"] <= 1e-3)
+        dry = dryrun_multichip(2, device="cpu")
+        print("mirror", dry["mirror_err"] <= 1e-3)
+        print("delta12", dry["delta12"]["bytes_equal"], dry["delta12"]["batch"])
         assert not [m for m in sys.modules if m.startswith(("jax", "nucleoatac_tpu"))
                     and sys.modules[m] is not None]
         """,
         tmp_path,
     )
-    assert "mirror True" in out
+    assert "mirror True" in out and "delta12 True 64" in out
 
 
 def test_no_port_module_imports_the_jax_package():

@@ -1,9 +1,9 @@
 """The port's host->device wires and its `conv="direct"` route against the
 JAX package (CPU backend), from the same seeded inputs: the packed-word,
 delta-pair and fragment-list rasters (counts equal), DeviceEngine's entry
-points of the delta, packed, frags and dense wires against the port's
-compositions of the same stage functions, in exact and non-exact form, a
-size range above 255 on the packed wire, and the direct route."""
+points of the delta, packed, frags and dense wires against TorchEngine's
+steps of the same names, in exact and non-exact form, a size range above
+255 on the packed wire, and the direct route."""
 import dataclasses
 
 import numpy as np
@@ -162,7 +162,8 @@ def test_conv_stack_direct_matches_oracle_and_jax(rng):
 @pytest.fixture(scope="module")
 def example(tmp_path_factory):
     """The example read and fitted by each package on its own, the JAX
-    package's batches on every wire, and the sequence-code rows."""
+    package's batches on every wire (one pool batch per delta12 batch),
+    and the sequence-code rows."""
     from nucleoatac_torch.models.occ import fit_mixture as tfit_mixture
 
     ex = make_example(tmp_path_factory.mktemp("transfer_example"))
@@ -184,6 +185,9 @@ def example(tmp_path_factory):
                                                CFG.sizes.upper)),
         "delta12": list(jdata.make_delta12_batches(frags, tiles, W, B)),
     }
+    # the pool wire over each delta12 batch's windows
+    wires["pool"] = [p for b in wires["delta12"]
+                     for p in jdata.make_pool_batches(frags, b.meta, W, B)]
     teng = _engine(fits, CFG)
     seq = SeqCodesProvider(TFastaFile(ex["fasta"]), tchunks, teng, B)
     codes = [seq.rows(b.meta) for b in wires["delta"]]
@@ -206,29 +210,6 @@ WIRE_ARGS = {
     "dense": lambda b: [b.mats],
 }
 NUC_FORMS = ("delta_seq", "delta", "packed_seq", "packed", "frags", "dense")
-# the port names no entry point per wire and mode: its stages compose a
-# wire's raster with the occ or nuc branch (models/occ.py and
-# models/nuc.py :: _batches); DeviceEngine's names map onto them here
-PORT_RASTER = {"delta": "_raster_delta", "packed": "_raster_packed",
-               "frags": "_raster_frags", "dense": "_dense"}
-
-
-def port_occ_step(eng, wire, sfx):
-    """The port's DeviceEngine.occ_step_{wire}_{sfx}."""
-    finish = eng._occ_packed2 if sfx == "p2" else eng._occ_packed3
-    raster = getattr(eng, PORT_RASTER[wire])
-    return lambda *a: finish(raster(*a))
-
-
-def port_nuc_step(eng, form, sfx):
-    """The port's DeviceEngine.nuc_step_{form}_{sfx}: the wire's raster,
-    then the branch on the on-device PWM bias (nibble codes on delta_seq,
-    plain codes on packed_seq) or on the uploaded log-bias row."""
-    finish = eng._nucm16 if sfx == "m16" else eng._nuc5
-    raster = getattr(eng, PORT_RASTER[form.replace("_seq", "")])
-    bias = {"delta_seq": eng._logbias_nib, "packed_seq": eng._logbias_seq}.get(
-        form, lambda row: row)
-    return lambda *a: finish(raster(*a[:-1]), bias(a[-1]))
 
 
 def _nuc_args(form, b, codes, logb):
@@ -263,7 +244,7 @@ def test_occ_step_matches_device_engine(example, wire, sfx):
     fits, jeng, wires, _, _ = example
     teng = _engine(fits, CFG)
     name = f"occ_step_{wire}_{sfx}" if wire != "dense" else f"occ_step_{sfx}"
-    step = port_occ_step(teng, wire, sfx)
+    step = getattr(teng, name)
     for b in wires[wire]:
         jm, tm = _rasters(jeng, teng, wire, b)
         np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
@@ -294,7 +275,7 @@ def test_nuc_step_m16_matches_device_engine(example, form):
     for b, c, lb in zip(wires[wire], codes, logb):
         args = _nuc_args(form, b, c, lb)
         jbuf = np.asarray(getattr(jeng, f"nuc_step_{form}_m16")(*map(jnp.asarray, args)))
-        tbuf = port_nuc_step(teng, form, "m16")(*map(T, args)).numpy()
+        tbuf = getattr(teng, f"nuc_step_{form}_m16")(*map(T, args)).numpy()
         assert tbuf.shape == jbuf.shape and tbuf.dtype == np.uint8
         (jn, jq), (tn, tq) = jeng.f32_from_u16(jbuf), teng.f32_from_u16(tbuf)
         assert (np.abs(tn - jn) <= TOL + np.maximum(jq, tq)[:, None]).all()
@@ -324,7 +305,7 @@ def test_nuc_step_c_matches_device_engine(example, form):
     for b, c, lb in zip(wires[form.replace("_seq", "")], codes, logb):
         args = _nuc_args(form, b, c, lb)
         want = np.asarray(getattr(jeng, f"nuc_step_{form}_c")(*map(jnp.asarray, args)))
-        got = port_nuc_step(teng, form, "c")(*map(T, args)).numpy()
+        got = getattr(teng, f"nuc_step_{form}_c")(*map(T, args)).numpy()
         peak = np.maximum(peak, _check_nuc5(got, want))
     assert (peak > np.array([1.0, 1.0, 0.1, 1.0, 1.0])).all()
     assert teng.steps == len(codes)
@@ -354,7 +335,7 @@ def test_every_route_counts_its_launches_on_the_new_wires(example, monkeypatch, 
     monkeypatch.setattr(tengine_mod, "nuc_scores", k2)
     for form in ("packed_seq", "frags"):
         for b, c, lb in zip(wires[form.replace("_seq", "")], codes, logb):
-            port_nuc_step(eng, form, "m16")(*map(T, _nuc_args(form, b, c, lb)))
+            getattr(eng, f"nuc_step_{form}_m16")(*map(T, _nuc_args(form, b, c, lb)))
     n = 2 * len(codes)
     assert calls == {"k1": k1_calls * n, "k2": k2_calls * n}
     assert eng.steps == n
@@ -387,8 +368,8 @@ def test_direct_route_agrees_with_k2_route(example):
     a, b = _engine(fits, CFG, "diag"), _engine(fits, CFG, "direct")
     for w, c in zip(wires["delta"], codes):
         nib = T(jdata.pack_nibble_codes(c))
-        _check_nuc5(port_nuc_step(b, "delta_seq", "c")(T(w.delta), nib).numpy(),
-                    port_nuc_step(a, "delta_seq", "c")(T(w.delta), nib).numpy())
+        _check_nuc5(b.nuc_step_delta_seq_c(T(w.delta), nib).numpy(),
+                    a.nuc_step_delta_seq_c(T(w.delta), nib).numpy())
 
 
 # ---------------- a size range past 255 on the packed wire ---------------
@@ -423,7 +404,7 @@ def test_upper_500_packed_steps_match_device_engine(rng):
     mat = teng._raster_packed(T(packed))
     assert mat.shape == (B, 500, W) and float(mat[:, 256:].sum()) > 0
     (jidx, jcert) = jeng.decode_occ2(np.asarray(jeng.occ_step_packed_p2(jnp.asarray(packed))))
-    (tidx, tcert) = teng.decode_occ2(teng._occ_packed2(mat).numpy())
+    (tidx, tcert) = teng.decode_occ2(teng.occ_step_packed_p2(packed).numpy())
     both = jcert & tcert
     assert both.mean() > 0.5
     for c in range(3):
