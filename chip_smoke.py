@@ -67,6 +67,17 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 diag_pallas engine: K1 launches == 2 x nuc calls. The
                 fused delta steps timed per batch beside run_step_pool2,
                 inputs resident.
+  5e. profiling — the port's profilers (nucleoatac_torch/profiling) on
+                phase 5's first batch through phase 5's engine: the stage
+                profile of run_step_pool2 (rows finite and > 0, their
+                composed bytes equal to run_step_pool2's, K2 launches ==
+                the xcorr row's calls), a torch.profiler trace of 8
+                batches naming nuc_scores_kernel 8 times; the same on
+                [cuda:0, cuda:0] (16 times); the diag_pallas route (two K1
+                rows, 16 K1 events); then the finishing profile at 250
+                peaks (every component group, the ten outputs, the fused
+                timers none negative). Each report is printed as a table
+                and a JSON line.
   6. parity   — the same small run on cuda and on cpu (plain versions):
                 output rows equal, signal tracks within nuc.exact_tol.
   7. stages   — `nucleoatac-torch occ`, `nuc`, `merge`, `nfr` (the
@@ -117,8 +128,8 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 exists and names nuc_scores_kernel.
 Then one JSON line of kernel records (K2's launches from phase 5, K1's
 from phase 8, and each kernel's launches on every path that ran it,
-phase 5b's sharded runs, phase 5c's tracks, phase 5d's forms and phase
-8b's wires included) and as
+phase 5b's sharded runs, phase 5c's tracks, phase 5d's forms, phase
+5e's profiles and phase 8b's wires included) and as
 the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX (``jax`` is blocked in this process) and nothing of
@@ -127,6 +138,7 @@ the JAX package: the synthetic data are written by the port's own writers.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -136,6 +148,7 @@ import time
 
 sys.modules["jax"] = None  # the port must run without JAX
 
+from nucleoatac_torch.profiling.stages import bound, k1_work, k2_work, smi  # noqa: E402
 from nucleoatac_torch.synthetic import make_example, make_long_example, synth_dataset  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -163,37 +176,6 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
-
-
-# published H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
-
-
-def smi() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def bound(tc_flops: float, fp32_flops: float, nbytes: float) -> dict:
-    """The least time of a kernel's work on the card: the larger of its
-    bytes (each input read once, each output written once) over HBM's rate
-    and its operations over the rate of the pipe that runs them. The tile
-    runs its 2-D sums (tc_flops) as three TF32 tensor-core products per
-    term, so they count three times at the TF32 rate; the rest
-    (fp32_flops) run on the FP32 pipes beside them. Also returned: the
-    same work all on the FP32 pipes, the bound of an FMA tile."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(3 * tc_flops / TF32_FLOP_PER_S, fp32_flops / FP32_FLOP_PER_S) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_rate": "3 TF32 tensor-core products per term at 495 TFLOP/s",
-            "fp32_pipe_bound_ms": max(t_bytes, (tc_flops + fp32_flops) / FP32_FLOP_PER_S * 1e3),
-            "flops": tc_flops + fp32_flops, "bytes": nbytes}
 
 
 def phase_device() -> None:
@@ -270,7 +252,7 @@ def phase_k1() -> None:
         times["plain_ms"].append(cuda_ms(lambda: conv_stack_diag(x, k2d)))
         times["library_ms"].append(cuda_ms(lambda: F.conv1d(x, wconv), iters=20))
     t = {k: min(v) for k, v in times.items()}
-    bd = bound(2.0 * B * C * S * K * Wo, 0.0, 4.0 * (B * S * W + C * K * S + B * C * Wo))
+    bd = bound(*k1_work(B, S, W, K, C))
     wide = _k1_wide(dev)
     phase("K1", f"diag_xcorr [64,146,1536]x[2,147,146]: max|k-plain| "
           f"{err_plain:.3e}, max|k-f64| {err64:.3e} (rel {rel64:.2e}); "
@@ -445,8 +427,7 @@ def phase_k2() -> None:
         times["library_ms"].append(cuda_ms(lambda: F.conv1d(fb, wconv, groups=2), iters=20))
     t = {k: min(v) for k, v in times.items()}
     S = fmat.shape[1]
-    bd = bound(2.0 * B * Wo * 4 * S * K, 2.0 * B * Wo * 4 * K + 2.0 * B * S * W,
-               4.0 * (2 * B * S * W + 4 * K * S + 4 * K + 5 * B * W))
+    bd = bound(*k2_work(B, S, W, K))
     cover = _k2_coverage(dev, cfg, q, tabs)
     wide = _k2_wide(dev, fmat[:4], b0[:4], tabs, vf, bars)
     fmt = lambda e: ", ".join(f"{c} {v:.3e}" for c, v in e.items())  # noqa: E731
@@ -1072,6 +1053,84 @@ def phase_forms(data: dict, run5: dict, n_batches: int = 2) -> dict:
           f"run_step_pool2 {ms['run_step_pool2']:.3f} ms; phase {wall:.1f} s; {smi()}")
     return {"nuc_scores": launches["nuc_scores"], "diag_xcorr": dp_launches["diag_xcorr"],
             "ms": ms, "wall_s": wall}
+
+
+def phase_profiling(data: dict, run5: dict) -> dict:
+    """The port's profilers on the card (nucleoatac_torch/profiling): the
+    stage profile of phase 5's first batch through phase 5's engine
+    (pool2 rows on K2, [64, 251, 1536] rasters), its trace of 8 batches,
+    the same two-shard on [cuda:0, cuda:0], the K1 route's rows, and the
+    finishing profile at 250 peaks. Returns each kernel's launches."""
+    import torch
+
+    from nucleoatac_torch.models.engine import TorchEngine
+    from nucleoatac_torch.parity import RUN_SUFFIXES
+    from nucleoatac_torch.profiling import finish, stages
+
+    t_phase = time.perf_counter()
+    eng, n = run5["engine"], 8
+    batch = stages.dataset_batch(eng, data["bam"], data["bed"], data["fasta"])
+    reset_launches()
+    reps, msgs = {}, []
+    with tempfile.TemporaryDirectory() as d:
+        engines = {
+            "whole": eng,
+            "two shards": TorchEngine(eng.cfg, run5["mix"], run5["fs"], eng.vmat,
+                                      pwm=eng.pwm, device=[CARD, CARD]),
+            "diag_pallas": TorchEngine(eng.cfg, run5["mix"], run5["fs"], eng.vmat,
+                                       pwm=eng.pwm, device=CARD, conv="diag_pallas"),
+        }
+        for name, e in engines.items():
+            rep = reps[name] = stages.profile_stages(e, batch, "pool2", iters=20,
+                                                     trace_dir=d, trace_batches=n)
+            bad = {k: r["ms"] for k, r in rep["rows"].items()
+                   if not (math.isfinite(r["ms"]) and r["ms"] > 0)}
+            if bad:
+                raise AssertionError(f"profiling {name}: rows not finite and > 0: {bad}")
+            if not rep["composed_equal"]:
+                raise AssertionError(f"profiling {name}: composed stages' bytes differ")
+            tr = rep["trace"]
+            got = {k: stages.named_count(tr, f"{k}_kernel") for k in stages.KERNELS}
+            want = ({"nuc_scores": 0, "diag_xcorr": 2 * n} if e.conv == "diag_pallas"
+                    else {"nuc_scores": n * len(e.devices), "diag_xcorr": 0})
+            if got != want:
+                raise AssertionError(f"profiling {name}: the trace of {n} batches names "
+                                     f"{got}, expected {want}")
+            print(stages.format_report(rep), flush=True)
+            print(json.dumps(rep), flush=True)
+    whole = reps["whole"]
+    # the stage rows compose to the main path's own step on the same batch
+    t = stages.resident(eng, batch)
+    step = eng.run_step_pool2(t["pool"], t["table"], t["packed2"], t["esc"], t["emax"])
+    rows = stages.stage_rows(eng, batch, "pool2")
+    if not torch.equal(stages.composed(rows, "pool2"), step):
+        raise AssertionError("profiling: composed stages differ from run_step_pool2's bytes")
+    x = whole["rows"]["_xcorr"]
+    if x["launches"]["nuc_scores"] != x["calls"]:
+        raise AssertionError(f"profiling: K2 launched {x['launches']} in {x['calls']} calls")
+    k1_rows = [r for r in reps["diag_pallas"]["rows"] if r.startswith("K1")]
+    if len(k1_rows) != 2:
+        raise AssertionError(f"profiling: K1 rows {k1_rows}")
+    for name, rep in reps.items():
+        tr = rep["trace"]
+        gap = tr["gaps"][0] if tr["gaps"] else {"ms": 0.0, "host": None}
+        msgs.append(f"{name}: stage sum {rep['stage_sum_ms']:.4f} ms vs e2e_device "
+                    f"{rep['e2e_device_ms']:.4f} ms, enqueue {rep['enqueue_ms']:.4f} ms, "
+                    f"{tr['kernels_per_batch']:.1f} kernels/batch, busy "
+                    f"{tr['busy_share']:.1%}, longest gap {gap['ms']:.4f} ms ({gap['host']})")
+    with tempfile.TemporaryDirectory() as d:
+        fin = finish.profile_finish(peaks=250, top=15, device=CARD, out_dir=d)
+        missing = [sfx for sfx in RUN_SUFFIXES if not os.path.exists(fin["prefix"] + sfx)]
+    if missing or set(fin["groups"]) != set(finish.GROUPS) or fin["fused_timers"] == {} \
+            or min(fin["fused_timers"].values()) < 0:
+        raise AssertionError(f"profiling: finish outputs missing {missing}, groups "
+                             f"{fin['groups']}, timers {fin['fused_timers']}")
+    print(json.dumps(fin), flush=True)
+    launches = read_launches()
+    phase("profiling", "; ".join(msgs) + f"; finish at 250 peaks {fin['wall_s']:.2f} s "
+          f"({fin['ms_per_peak']:.2f} ms/peak), {len(RUN_SUFFIXES)} files; launches "
+          f"{launches}; phase {time.perf_counter() - t_phase:.1f} s; {smi()}")
+    return launches
 
 
 def phase_parity() -> None:
@@ -1823,6 +1882,7 @@ def main() -> int:
         devices = phase_devices(data, run5)
         tracks = phase_tracks(data, run5)
         forms = phase_forms(data, run5)
+        profiling = phase_profiling(data, run5)
         phase_parity()
         stages_k2 = phase_stages(data, run5)
         k1_launches = phase_conv(data, run5)
@@ -1845,12 +1905,12 @@ def main() -> int:
                        "tracks_dryrun": tracks["nuc_scores_dryrun"],
                        "forms": forms["nuc_scores"], "stages": stages_k2,
                        "hosts": hosts["nuc_scores"], "nonexact": nonexact["nuc_scores"],
-                       **wires["nuc_scores"]},
+                       "profile": profiling["nuc_scores"], **wires["nuc_scores"]},
         "diag_xcorr": {"conv": k1_launches, "devices_diag_pallas": devices["diag_xcorr"],
                        "tracks_dryrun": tracks["diag_xcorr_dryrun"],
                        "forms_diag_pallas": forms["diag_xcorr"],
                        "nonexact_diag_pallas": nonexact["diag_xcorr"],
-                       **wires["diag_xcorr"]},
+                       "profile": profiling["diag_xcorr"], **wires["diag_xcorr"]},
     }
     for rec in KERNEL_RECORDS:
         rec["launches"] = launches[rec["name"]]

@@ -431,46 +431,71 @@ class TorchEngine:
         )
 
     def _scores(self, mat, log_bias):
+        """(norm, signal, lr, fuzz, n), each f32 [B, W]: the bias matrix of
+        ``log_bias``, then _xcorr. Counts one nuc batch."""
+        self.steps += 1
+        return self._xcorr(mat, self._bias(log_bias))
+
+    def _fmat(self, mat):
+        """The nuc-range rows of the raster, a batch-strided view (no
+        copy): what the xcorr kernels read."""
+        vlo = self.cfg.vmat.lower - self.cfg.sizes.lower
+        return mat[:, vlo : self.cfg.vmat.upper - self.cfg.sizes.lower]
+
+    def _xcorr(self, mat, b0):
         """(norm, signal, lr, fuzz, n), each f32 [B, W], on the configured
         xcorr route (K2 on every route under use_pallas); every route
-        gives 0 where n = 0. The nuc-range rows of the raster go to the
-        kernels as a batch-strided view (no copy). Counts one nuc batch."""
-        self.steps += 1
-        vlo = self.cfg.vmat.lower - self.cfg.sizes.lower
-        vup = self.cfg.vmat.upper - self.cfg.sizes.lower
-        fmat, b0 = mat[:, vlo:vup], self._bias(log_bias)
-        tables = self._tab(mat)
-        tabs = tables["_diag_kernels"]
+        gives 0 where n = 0."""
         if self.conv == "diag" or self.use_pallas:  # one K2 launch: xcorr and epilogue
-            k2 = nuc_scores(fmat, b0, *tabs, self.cfg.nuc.var_floor)
+            k2 = nuc_scores(self._fmat(mat), b0, *self._tab(mat)["_diag_kernels"],
+                            self.cfg.nuc.var_floor)
             return k2[:, 0], k2[:, 1], k2[:, 2], k2[:, 3], k2[:, 4]
-        if self.conv == "diag_pallas":  # two K1 launches
-            fo, bo = nuc_conv_outputs(fmat, b0, *tabs)
-        else:  # "direct": two conv1d calls over the build_kernels stacks
-            fo, bo = nuc_conv_outputs_direct(
-                fmat, b0, tables["f_kernels"], tables["b_kernels"]
-            )
-        # the reference's _convs_impl + _finish_impl: valid outputs padded
-        # dyad-aligned to W, then the elementwise epilogue
-        K = tabs[0].shape[1]
+        return self._finish(*self._convs(mat, b0))
+
+    def _convs(self, mat, b0):
+        """The eight footprint sums, valid outputs (fo [B, 5, W-K+1], bo
+        [B, 3, W-K+1]): two K1 launches ("diag_pallas") or two conv1d
+        calls over the build_kernels stacks ("direct"). The "diag" route
+        has no such stage: K2 computes the sums and the epilogue in one
+        launch."""
+        fmat, tables = self._fmat(mat), self._tab(mat)
+        if self.conv == "diag_pallas":
+            return nuc_conv_outputs(fmat, b0, *tables["_diag_kernels"])
+        if self.conv == "direct":
+            return nuc_conv_outputs_direct(fmat, b0, tables["f_kernels"],
+                                           tables["b_kernels"])
+        raise ValueError(f"conv={self.conv!r} computes the sums inside K2")
+
+    def _finish(self, fo, bo):
+        """The reference's _convs_impl padding + _finish_impl epilogue:
+        valid outputs padded dyad-aligned to W, then (norm, signal, lr,
+        fuzz, n)."""
+        K = self._tab(fo)["_diag_kernels"][0].shape[1]
         sc = finish_scores(
             pad_valid(fo, self.width, K), pad_valid(bo, self.width, K),
             self.cfg.nuc.var_floor,
         )
         return sc.norm, sc.signal, sc.lr, sc.fuzz, sc.n
 
-    def _nucm(self, mat, log_bias):
-        """f32 [B, core + 2m] norm with smooth margins."""
-        norm = self._scores(mat, log_bias)[0]
+    def _margin(self, norm):
+        """norm [B, W] -> [B, core + 2m]: the core and the smooth margins."""
         m = self.smooth_margin()
         return norm[:, self.core_lo - m : self.core_lo + self.core + m]
+
+    def _nucm(self, mat, log_bias):
+        """f32 [B, core + 2m] norm with smooth margins."""
+        return self._margin(self._scores(mat, log_bias)[0])
 
     def _nuc5(self, mat, log_bias):
         """f32 [B, 5, W] (norm, norm_smooth, signal, lr, fuzz) over the
         whole window (non-exact mode); under "diag" K2's channels
         reordered, the reference's use_pallas form."""
-        t = self._nuc_tracks(mat, log_bias)
-        return torch.stack(t[:5], dim=1)
+        return self._finish5(self._scores(mat.to(torch.float32), log_bias))
+
+    def _finish5(self, scores):
+        """_xcorr's scores -> f32 [B, 5, W] (norm, norm_smooth, signal, lr,
+        fuzz): the smooth and the stack of the reference's _finish5_impl."""
+        return torch.stack(self._smoothed(scores)[:5], dim=1)
 
     def _nuc2(self, mat, log_bias):
         """f32 [B, 2, core] (norm, norm_smooth) over the core (wire v2)."""
@@ -487,7 +512,12 @@ class TorchEngine:
 
     def _nuc_tracks(self, mat, log_bias) -> NucTracks:
         """_scores (one nuc batch) plus the gaussian-smoothed norm."""
-        norm, signal, lr, fuzz, n = self._scores(mat.to(torch.float32), log_bias)
+        return self._smoothed(self._scores(mat.to(torch.float32), log_bias))
+
+    def _smoothed(self, scores) -> NucTracks:
+        """(norm, signal, lr, fuzz, n) -> NucTracks, with the
+        gaussian-smoothed norm."""
+        norm, signal, lr, fuzz, n = scores
         smooth = gauss_smooth_batch(norm, self._tab(norm)["smooth_kernel"])
         return NucTracks(norm, smooth, signal, lr, fuzz, n)
 

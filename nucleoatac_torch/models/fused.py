@@ -141,9 +141,8 @@ def run_fused(
 
     timers = {
         "wire_wait": 0.0, "decode": 0.0, "host_smooth": 0.0,
-        "assemble": 0.0, "drain_wait": 0.0,
+        "assemble": 0.0, "drain_wait": 0.0, "emit": 0.0, "final_drain": 0.0,
         "w_occ_refinish": 0.0, "w_occ_compute": 0.0, "w_nuc_compute": 0.0,
-        "emit": 0.0,
     }
     t_on = _timers_enabled()
 
@@ -268,20 +267,30 @@ def run_fused(
                 drain(block=len(fut_q) > max(2, 2 * n_threads))
         if t_on:
             timers["assemble"] += _time.perf_counter() - t0
+    if t_on:
+        # assemble includes the drains nested in the loop; report it
+        # exclusive of those, and the final drain (the wait for the last
+        # chunks, outside the loop; a divergence from the reference, which
+        # subtracts it too and can go negative) as its own term
+        in_loop = {k: timers[k] for k in ("drain_wait", "emit")}
+        timers["assemble"] -= sum(in_loop.values())
+        t0 = _time.perf_counter()
     drain(block=True)
     if t_on:
-        # assemble includes nested drain time; report it exclusive
-        timers["assemble"] -= timers["drain_wait"] + timers["emit"]
+        timers["final_drain"] = _time.perf_counter() - t0
+        timers.update(in_loop)
+        nuc_res.fused_timers = dict(timers)
         from nucleoatac_torch.utils.logging import log
 
         log.info(
             "fused timers (s): main thread wire_wait=%.1f decode=%.1f "
-            "host_smooth=%.1f assemble=%.1f drain_wait=%.1f emit=%.1f | "
+            "host_smooth=%.1f assemble=%.1f drain_wait=%.1f emit=%.1f "
+            "final_drain=%.1f | "
             "finish workers (cpu-s across %d threads): occ_refinish=%.1f "
             "occ_compute=%.1f nuc_compute=%.1f",
             timers["wire_wait"], timers["decode"], timers["host_smooth"],
             timers["assemble"], timers["drain_wait"], timers["emit"],
-            max(n_threads, 1), timers["w_occ_refinish"],
+            timers["final_drain"], max(n_threads, 1), timers["w_occ_refinish"],
             timers["w_occ_compute"], timers["w_nuc_compute"],
         )
     if pool is not None:

@@ -71,6 +71,9 @@ class NucStageResult:
     # chunks with at least one sub-margin selection decision settled by
     # f64 point values (cheap; informational)
     n_resolved_chunks: int = 0
+    # the fused pass's wall-clock terms (s), set when NUCLEOATAC_FUSED_TIMERS
+    # is on (models/fused.py)
+    fused_timers: Dict[str, float] = field(default_factory=dict)
 
 
 def chunk_seq_codes(
