@@ -2,7 +2,8 @@
 
 Counterpart of nucleoatac_tpu/ops/occupancy.py: project the [B, S, W]
 count matrix through the [S, G] log-mixture table with one full-float32
-matmul, then sum each position's window of 2*flank+1 projections
+matmul (float64 on the CPU, so that the bits hold at any thread count),
+then sum each position's window of 2*flank+1 projections
 DIRECTLY (an unfold of the zero-padded surface, summed) — not as a cumsum
 difference, whose cancellation costs ~1e-2 absolute on LL ~1e2 in f32.
 Tie rules follow the reference: argmax takes the first index; the CI's
@@ -40,9 +41,17 @@ def _ll_and_n(mat: torch.Tensor, log_mix: torch.Tensor, flank: int):
     The window sum accumulates in float64 and rounds once to the input
     dtype: a float32 running sum of 121 terms of |LL| ~ 2e3 drifted by
     1.03e-3 from float64 on the H100 at ~300 fragments per window, past
-    occ.exact_tol (1e-3), which the certified flags rely on."""
-    proj = torch.einsum("bsw,sg->bgw", mat, log_mix)
-    ll = _sliding_sum(proj.double(), flank).to(proj.dtype).transpose(1, 2)
+    occ.exact_tol (1e-3), which the certified flags rely on.
+
+    On the CPU the projection is a float64 einsum too, and the surface
+    rounds once, after the window sum: a float32 GEMM's summation order is
+    the BLAS library's choice, which may follow the thread count or a
+    shard's window count. The card keeps its float32 SGEMM."""
+    if mat.device.type == "cpu":
+        proj = torch.einsum("bsw,sg->bgw", mat.double(), log_mix.double())
+    else:
+        proj = torch.einsum("bsw,sg->bgw", mat, log_mix)
+    ll = _sliding_sum(proj.double(), flank).to(mat.dtype).transpose(1, 2)
     n = _sliding_sum(mat.sum(dim=1), flank)
     return ll, n
 

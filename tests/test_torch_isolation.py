@@ -2,8 +2,9 @@
 `import nucleoatac_tpu` both fail, every module imports,
 run_pipeline(device='cpu') completes on the synthetic example in exact and
 non-exact mode, and so do the two command lines, a one-host
-`run --num_hosts 1 --host_id 0` and the entry points of entry.py (with matplotlib blocked too, as on a
-machine without it, under --no_plots). The example data is written by this
+`run --num_hosts 1 --host_id 0`, the entry points of entry.py and the
+engine bench (with matplotlib blocked too, as on a machine without it,
+under --no_plots). The example data is written by this
 test process before the blocked one starts. No module of the port (nor
 chip_smoke.py) names the JAX package in an import; the port's copied
 config keeps the reference's defaults; its native code is its own .so
@@ -11,6 +12,7 @@ files."""
 import ast
 import dataclasses
 import glob
+import json
 import os
 import pathlib
 import subprocess
@@ -82,6 +84,12 @@ PORT_MODULES = [
     "nucleoatac_torch.cli.nucleoatac",
     "nucleoatac_torch.cli.pyatac",
     "nucleoatac_torch.entry",
+    "nucleoatac_torch.bench",
+    "nucleoatac_torch.bench.common",
+    "nucleoatac_torch.bench.engine",
+    "nucleoatac_torch.bench.e2e",
+    "nucleoatac_torch.bench.scaling",
+    "nucleoatac_torch.bench.config5",
 ]
 
 
@@ -234,6 +242,32 @@ def test_entry_points_without_jax(tmp_path):
         tmp_path,
     )
     assert "mirror True" in out and "delta12 True 64" in out
+
+
+def test_engine_bench_without_jax(tmp_path):
+    """`python3 -m nucleoatac_torch.bench.engine --device cpu` at the tiny
+    size, its e2e run included, prints its line; its files go under the
+    test's directory."""
+    out = _run_without_jax(
+        f"""
+        import json, runpy, tempfile
+        sys.modules['matplotlib'] = None
+        tempfile.tempdir = {str(tmp_path)!r}
+        sys.argv = ['engine', '--device', 'cpu', '--core', '256', '--batch', '2',
+                    '--frag-cap', '64', '--batches', '2', '--repeats', '1',
+                    '--cpu-windows', '1', '--e2e-peaks', '2',
+                    '--record', {str(tmp_path / "rec.json")!r}]
+        try:
+            runpy.run_module('nucleoatac_torch.bench.engine', run_name='__main__')
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        assert not [m for m in sys.modules if m.startswith(("jax", "nucleoatac_tpu"))
+                    and sys.modules[m] is not None]
+        """,
+        tmp_path,
+    )
+    line = json.loads(out.splitlines()[-1])
+    assert line["value"] > 0 and line["e2e_peaks"] == 2 and line["device"] == "cpu"
 
 
 def test_no_port_module_imports_the_jax_package():

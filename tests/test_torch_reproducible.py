@@ -1,24 +1,28 @@
-"""The CPU path's f32 norm does not depend on the thread count, on
-concurrent load or on how a batch is sharded: ops/xcorr.py ::
+"""The CPU path's f32 norm and occupancy LL do not depend on the thread
+count, on concurrent load or on how a batch is sharded: ops/xcorr.py ::
 conv1d_stack (the 1-D stacks of K1's and K2's plain versions), whose
 float32 einsum gave other bits at other thread counts; ops/xcorr.py ::
 conv_stack_diag (their 2-D stacks), whose float32 GEMM each shard runs at
-its own window count; and whole runs of the fused pool pass and the
+its own window count; ops/occupancy.py :: _ll_and_n (the occ LL einsum
+and its window sum); and whole runs of the fused pool pass and the
 two-pass delta12 path at different thread counts, which print the same
 signal bytes."""
 import dataclasses
 import gzip
+import hashlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
+from nucleoatac_tpu.ops.occupancy import _ll_and_n as jax_ll_and_n
 from nucleoatac_tpu.ops.smooth import gauss_smooth_batch as jax_gauss_smooth_batch
 from nucleoatac_tpu.ops.xcorr import conv1d_stack as jax_conv1d_stack
 from nucleoatac_tpu.ops.xcorr import conv_stack_diag as jax_conv_stack_diag
 from nucleoatac_torch.config import RunConfig, WindowParams
 from nucleoatac_torch.models.pipeline import run_pipeline
+from nucleoatac_torch.ops.occupancy import _ll_and_n
 from nucleoatac_torch.ops.smooth import gauss_kernel, gauss_smooth_batch
 from nucleoatac_torch.ops.xcorr import conv1d_stack, conv_stack_diag
 from nucleoatac_torch.parity import SIGNAL_SUFFIXES
@@ -124,6 +128,43 @@ def test_gauss_smooth_bits_hold_across_shards_and_threads(threads):
     bound = K * 2.0 ** -24 * float((win.abs() @ k.double()).max())
     jax_out = np.asarray(jax_gauss_smooth_batch(x.numpy(), k.numpy()))
     assert np.abs(want.numpy() - jax_out).max() <= bound
+
+
+def test_occ_ll_bits_hold_across_shards_threads_and_load(threads):
+    """The occupancy LL surface of 8 windows (_ll_and_n: the [S, G]
+    log-mixture einsum, then the window sum), whole and as 2, 4 and 8
+    shards, at 1 to 8 threads and from four threads at once: one hash of
+    its bits, the float64 surface rounded once (within half an f32 ulp of
+    an independent float64 evaluation), and within f32 rounding of the
+    reference's."""
+    rng = np.random.default_rng(14)
+    flank = 60
+    mat = torch.from_numpy(rng.poisson(0.05, (8, 251, 512)).astype(np.float32))
+    log_mix = torch.from_numpy(
+        np.log(rng.dirichlet(np.ones(251), size=101).T).astype(np.float32))
+
+    def digest(parts):
+        ll = torch.cat([_ll_and_n(p, log_mix, flank)[0] for p in parts])
+        return hashlib.sha256(ll.contiguous().numpy().tobytes()).hexdigest()
+
+    def sharded():
+        return [digest(mat.split(8 // n)) for n in (1, 2, 4, 8)]
+
+    want = digest([mat])
+    assert set(d for run in threads(sharded) for d in run) == {want}
+    with ThreadPoolExecutor(4) as pool:
+        assert set(pool.map(lambda n: digest(mat.split(n)), (1, 2, 4, 8) * 3)) == {want}
+    ll, n = _ll_and_n(mat, log_mix, flank)
+    counts = torch.nn.functional.pad(mat.double(), (flank, flank)).unfold(
+        2, 2 * flank + 1, 1).sum(dim=-1)  # [B, S, W]: the window's counts first
+    ref = torch.einsum("bsw,sg->bwg", counts, log_mix.double())
+    assert float(ref.abs().max()) > 100
+    half_ulp = torch.finfo(torch.float32).eps / 2 * ll.double().abs()
+    assert ((ll.double() - ref).abs() <= half_ulp * (1 + 1e-6)).all()
+    bound = (251 + 2 * flank + 1) * 2.0 ** -24 * float(ref.abs().max())
+    jll, jn = jax_ll_and_n(mat.numpy(), log_mix.numpy(), flank)
+    assert np.abs(ll.numpy() - np.asarray(jll)).max() <= bound
+    np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
 
 
 def test_pool_and_delta12_runs_print_one_signal_at_other_thread_counts(threads, tmp_path):
