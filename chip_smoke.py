@@ -26,7 +26,9 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 (max |LL - f64| must stay within OccParams.exact_tol).
   5. run      — nucleoatac_torch run_pipeline on the card with the default
                 RunConfig on synthetic data (1,000 peaks); K2 launches ==
-                nuc batches.
+                nuc batches (each replay of a fused step's CUDA graph
+                counts the launches its capture recorded). Every fused
+                step of every later phase replays its graph.
   5b. devices — the one-process multi-device run: run_pipeline with the
                 default RunConfig on phase 5's dataset, each batch of 64
                 windows sharded over every visible card ("cuda"), or over
@@ -70,9 +72,10 @@ Phases (one line each; any failure raises and the script exits nonzero):
   5e. profiling — the port's profilers (nucleoatac_torch/profiling) on
                 phase 5's first batch through phase 5's engine: the stage
                 profile of run_step_pool2 (rows finite and > 0, their
-                composed bytes equal to run_step_pool2's, K2 launches ==
-                the xcorr row's calls), a torch.profiler trace of 8
-                batches naming nuc_scores_kernel 8 times; the same on
+                composed bytes equal to run_step_pool2's replay, K2
+                launches == the xcorr row's calls; e2e_device of the
+                replay beside the eager chain's), a torch.profiler trace of
+                8 replayed batches naming nuc_scores_kernel 8 times; the same on
                 [cuda:0, cuda:0] (16 times); the diag_pallas route (two K1
                 rows, 16 K1 events); then the finishing profile at 250
                 peaks (every component group, the ten outputs, the fused
@@ -86,6 +89,21 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 run_e2e on phase 5's files (byte-equal outputs); scaling at
                 n = 1, 2; config5 at 2 hosts x 1 sample x 200 peaks,
                 byte-identical to one host. K2 launches == batches run.
+  5g. graphs  — the fused steps as step programs (models/graphs.py: one
+                CUDA graph per input signature, replayed; the reference's
+                jit executables): phase 5's run made at most 2 captures;
+                its first 8 batches, dispatched as the run dispatches them,
+                replay byte-equal to the eager chain (_run_pool2) on the
+                same device inputs with no new capture; run_step_delta12
+                and run_step_delta on 5d's encodings equal to their eager
+                chains and to pool2; one batch on a diag_pallas engine (K1
+                inside the graph) and on two shards of cuda:0; K2 == nuc
+                steps, K1 == 2 x nuc steps. Prints captures, replays, the
+                graph pools' bytes and memory_reserved, e2e_device of the
+                replay and of the eager chain in turns (least of three),
+                two shards against one card, each form's host enqueue and
+                a trace of 8 steps of each (kernels per batch,
+                cudaGraphLaunch calls, busy share).
   6. parity   — the same small run on cuda and on cpu (plain versions):
                 output rows equal, signal tracks within nuc.exact_tol.
   7. stages   — `nucleoatac-torch occ`, `nuc`, `merge`, `nfr` (the
@@ -137,7 +155,8 @@ Phases (one line each; any failure raises and the script exits nonzero):
 Then one JSON line of kernel records (K2's launches from phase 5, K1's
 from phase 8, and each kernel's launches on every path that ran it,
 phase 5b's sharded runs, phase 5c's tracks, phase 5d's forms, phase
-5e's profiles, phase 5f's bench and phase 8b's wires included) and as
+5e's profiles, phase 5f's bench, phase 5g's graphs and phase 8b's wires
+included) and as
 the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX (``jax`` is blocked in this process) and nothing of
@@ -608,14 +627,17 @@ def phase_run(data: dict) -> dict:
     if not res.nuc.calls or not occ or not all(0.0 <= v <= 1.0 for v in occ):
         raise AssertionError("no dyad calls, or occ peaks out of [0, 1]")
     windows = len(tile_chunks(res.occ.chunks, cfg.window, cfg.occ, cfg.vmat))
+    progs = res.engine.programs
     phase("run", f"{data['n_peaks']} peaks, {windows} windows, {steps} batches of "
           f"{cfg.window.batch}: run_pipeline {wall:.2f} s = "
           f"{windows / wall:.1f} windows/s (data synthesis {data['t_data']:.1f} s, "
           f"not timed); {len(res.nuc.calls)} dyads, {len(res.nfrs)} NFRs; "
           f"launches {launches}; occ spot-check positions "
-          f"{res.occ_stage.n_spot_checked}")
+          f"{res.occ_stage.n_spot_checked}; step programs: {progs.captures} captures, "
+          f"{progs.replays} replays, pools {progs.pool_bytes / 1e6:.1f} MB")
     return {"prefix": prefix, "launches": launches, "steps": steps,
-            "windows": windows, "max_qstep": res.nuc_stage.max_qstep,
+            "windows": windows, "max_qstep": res.nuc_stage.max_qstep, "wall_s": wall,
+            "captures": progs.captures, "replays": progs.replays,
             "engine": res.engine, "mix": res.occ.mix, "fs": res.occ.fragmentsizes}
 
 
@@ -1104,6 +1126,10 @@ def phase_profiling(data: dict, run5: dict) -> dict:
             if got != want:
                 raise AssertionError(f"profiling {name}: the trace of {n} batches names "
                                      f"{got}, expected {want}")
+            rk = tr["replay_kernels"]
+            if len(rk) != n * len(e.devices) or len(set(rk)) != 1:
+                raise AssertionError(f"profiling {name}: the trace's {len(rk)} replays "
+                                     f"ran {rk} kernels: records were lost")
             print(stages.format_report(rep), flush=True)
             print(json.dumps(rep), flush=True)
     whole = reps["whole"]
@@ -1123,8 +1149,11 @@ def phase_profiling(data: dict, run5: dict) -> dict:
         tr = rep["trace"]
         gap = tr["gaps"][0] if tr["gaps"] else {"ms": 0.0, "host": None}
         msgs.append(f"{name}: stage sum {rep['stage_sum_ms']:.4f} ms vs e2e_device "
-                    f"{rep['e2e_device_ms']:.4f} ms, enqueue {rep['enqueue_ms']:.4f} ms, "
-                    f"{tr['kernels_per_batch']:.1f} kernels/batch, busy "
+                    f"{rep['e2e_device_ms']:.4f} ms ({rep['step_form']}; eager chain "
+                    f"{rep['e2e_eager_ms']:.4f} ms), enqueue {rep['enqueue_ms']:.4f} ms "
+                    f"(eager {rep['enqueue_eager_ms']:.4f} ms), {tr['kernels_per_batch']:.1f} "
+                    f"kernels/batch, {tr['graph_launches']} cudaGraphLaunch of "
+                    f"{tr['replay_kernels'][0]} kernels each, busy "
                     f"{tr['busy_share']:.1%}, longest gap {gap['ms']:.4f} ms ({gap['host']})")
     with tempfile.TemporaryDirectory() as d:
         fin = finish.profile_finish(peaks=250, top=15, device=CARD, out_dir=d)
@@ -1200,7 +1229,9 @@ def phase_bench(data: dict, run5: dict) -> int:
                         f"{line['breakdown_ms']['loop_without_encode_ms']:.2f} ms, encode "
                         f"{line['breakdown_ms']['encode_ms']:.2f} ms, pinning "
                         f"{line['breakdown_ms']['pin_ms']:.2f} ms per batch; first batch "
-                        f"{held[wire][0]:.3f} certified, max|norm - cpu| {held[wire][1]:.3e}")
+                        f"{held[wire][0]:.3f} certified, max|norm - cpu| {held[wire][1]:.3e}; "
+                        f"{line['captures']} captures, graph pools "
+                        f"{line['graph_pool_bytes'] / 1e6:.1f} MB")
         e = lines["delta12"]
         msgs.append(f"e2e at {e['e2e_peaks']} peaks {e['e2e_windows_per_s']} w/s "
                     f"({e['e2e_wall_s']} s)")
@@ -1240,6 +1271,178 @@ def phase_bench(data: dict, run5: dict) -> int:
     phase("bench", "; ".join(msgs) + f"; launches {launches} == batches run; phase "
           f"{time.perf_counter() - t_phase:.1f} s; {smi()}")
     return launches["nuc_scores"]
+
+
+def _same_bytes(what: str, replay, eager) -> None:
+    """Raise, naming the first differing (window, column), unless a step
+    program's replay printed the eager chain's bytes."""
+    import torch
+
+    if replay.shape != eager.shape or not torch.equal(replay, eager):
+        diff = (replay != eager).nonzero().tolist() if replay.shape == eager.shape else []
+        raise AssertionError(f"{what}: the replay's bytes differ from the eager chain's"
+                             + (f" at (window, column) {tuple(diff[0])}, {len(diff)} bytes"
+                                if diff else f": shapes {replay.shape} {eager.shape}"))
+
+
+def _replayed(eng, name: str, args) -> object:
+    """``eng``'s fused step ``name`` on ``args`` as a replay on every
+    shard: a call that captured (its output is the eager warm-up's) is
+    made again."""
+    before = eng.programs.replays
+    out = getattr(eng, name)(*args)
+    if eng.programs.replays - before != len(eng.devices):
+        before = eng.programs.replays
+        out = getattr(eng, name)(*args)
+        if eng.programs.replays - before != len(eng.devices):
+            raise AssertionError(f"graphs: {name} did not replay on every shard")
+    return out
+
+
+def phase_graphs(data: dict, run5: dict, n_batches: int = 8) -> dict:
+    """The fused steps as step programs (models/graphs.py), the
+    counterpart of the reference's jit executables: phase 5's first
+    batches, dispatched as the run dispatches them, through phase 5's
+    engine: each replay of run_step_pool2 (run_step_pool where a batch
+    overflows the escape list) byte-equal to the eager chain on the same
+    device inputs, with no new capture (phase 5's run made at most 2);
+    run_step_delta12 and run_step_delta on phase 5d's encodings of the
+    first two batches against their eager chains and the pool2 bytes; one
+    batch on a diag_pallas engine (K1 inside the graph) and on two shards
+    of cuda:0. K2 == nuc steps (K1 == 2 x nuc steps on diag_pallas), the
+    replays counted. Then e2e_device of the replay and of the eager chain
+    in turns (CUDA events, the least of three rounds), the host's enqueue
+    of each, two shards against one card, a trace of 8 steps of each form
+    (kernels per batch, cudaGraphLaunch calls, busy share) and the bytes
+    the graph pools reserve."""
+    import torch
+
+    from nucleoatac_torch.config import RunConfig
+    from nucleoatac_torch.core.chunk import ChunkList
+    from nucleoatac_torch.io.bam import scan_bam
+    from nucleoatac_torch.io.fasta import FastaFile
+    from nucleoatac_torch.models import data as tdata
+    from nucleoatac_torch.models.engine import TorchEngine
+    from nucleoatac_torch.models.nuc import SeqCodesProvider
+    from nucleoatac_torch.profiling import stages
+
+    t_phase = time.perf_counter()
+    cfg, eng = RunConfig(), run5["engine"]
+    B, W, dev = cfg.window.batch, eng.width, eng.device
+    if not 0 < run5["captures"] <= 2:
+        raise AssertionError(f"graphs: phase 5's run made {run5['captures']} captures")
+    frags = scan_bam(data["bam"], cfg.ingest)
+    chunks = ChunkList.read(data["bed"], frags.chrom_dict).merge()
+    tiles = tdata.tile_chunks(chunks, cfg.window, cfg.occ, cfg.vmat)
+    seq = SeqCodesProvider(FastaFile(data["fasta"]), chunks, eng, B)
+    t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    pools, batches = {}, []
+    for pb in tdata.make_pool_batches(frags, tiles, W, B):
+        if len(batches) == n_batches:
+            break
+        if pb.pool_id not in pools:
+            pools[pb.pool_id] = t(pb.pool)
+        pool = pools[pb.pool_id]
+        codes = seq.rows(pb.meta)
+        packed2, esc, ok = tdata.pack_2bit_codes(codes)
+        batches.append(("run_step_pool2", (pool, t(pb.table), t(packed2), t(esc), pb.emax))
+                       if ok else ("run_step_pool", (pool, t(pb.table),
+                                                     t(tdata.pack_nibble_codes(codes)),
+                                                     pb.emax)))
+    eager = {"run_step_pool2": "_run_pool2", "run_step_pool": "_run_pool",
+             "run_step_delta12": "_run_delta12", "run_step_delta": "_run_delta"}
+
+    # phase 5's engine: every batch a replay, byte-equal to the eager chain
+    progs = eng.programs
+    reset_launches()
+    steps0, cap0, rep0 = eng.steps, progs.captures, progs.replays
+    outs = []
+    for i, (name, args) in enumerate(batches):
+        outs.append(getattr(eng, name)(*args))
+        _same_bytes(f"graphs: batch {i} {name}", outs[-1], getattr(eng, eager[name])(*args))
+    launches = read_launches()
+    n = len(batches)
+    if (launches, eng.steps - steps0, progs.captures - cap0, progs.replays - rep0) != \
+            ({"nuc_scores": 2 * n, "diag_xcorr": 0}, 2 * n, 0, n):
+        raise AssertionError(f"graphs: {n} batches replayed and run eagerly gave launches "
+                             f"{launches}, {eng.steps - steps0} steps, "
+                             f"{progs.captures - cap0} captures, {progs.replays - rep0} "
+                             "replays")
+
+    # the fused delta steps on phase 5d's encodings of the first two batches
+    first = tiles[:2 * B]
+    enc = {"run_step_delta12": [b.buf for b in tdata.make_delta12_batches(frags, first, W, B)],
+           "run_step_delta": [b.delta for b in tdata.make_delta_batches(frags, first, W, B)]}
+    nibs = [tdata.pack_nibble_codes(seq.rows(first[i * B:(i + 1) * B])) for i in range(2)]
+    for name, bufs in enc.items():
+        for i, (buf, nib) in enumerate(zip(bufs, nibs)):
+            args = (t(buf), t(nib))
+            got = _replayed(eng, name, args)
+            _same_bytes(f"graphs: {name} batch {i}", got, getattr(eng, eager[name])(*args))
+            _same_bytes(f"graphs: {name} batch {i} against pool2", got, outs[i])
+
+    # K1 inside the graph; two shards on one card; their pools' bytes
+    name, args0 = batches[0]
+    reserved0 = torch.cuda.memory_reserved(dev)
+    dp = TorchEngine(cfg, run5["mix"], run5["fs"], eng.vmat, pwm=eng.pwm, device=CARD,
+                     conv="diag_pallas")
+    reset_launches()
+    _same_bytes(f"graphs: diag_pallas {name}", _replayed(dp, name, args0),
+                getattr(dp, eager[name])(*args0))
+    dp_launches = read_launches()
+    if dp_launches != {"nuc_scores": 0, "diag_xcorr": 2 * dp.steps} or \
+            dp.programs.captures != 1:
+        raise AssertionError(f"graphs: diag_pallas launches {dp_launches} for {dp.steps} "
+                             f"nuc steps, {dp.programs.captures} captures")
+    sh = TorchEngine(cfg, run5["mix"], run5["fs"], eng.vmat, pwm=eng.pwm,
+                     device=[CARD, CARD])
+    whole = getattr(eng, eager[name])(*args0)  # one card's eager chain
+    reset_launches()
+    _same_bytes(f"graphs: two shards {name}", _replayed(sh, name, args0), whole)
+    sh_launches = read_launches()
+    if sh_launches != {"nuc_scores": sh.steps, "diag_xcorr": 0} or sh.programs.captures != 1:
+        raise AssertionError(f"graphs: two shards launched {sh_launches} for {sh.steps} "
+                             f"nuc steps, {sh.programs.captures} captures")
+    reserved1 = torch.cuda.memory_reserved(dev)
+
+    # e2e_device of each form in turns, the enqueue, the traces
+    forms = {"replay": lambda: getattr(eng, name)(*args0),
+             "eager": lambda: getattr(eng, eager[name])(*args0),
+             "two shards": lambda: getattr(sh, name)(*args0)}
+    rounds = {k: [] for k in forms}
+    for _ in range(3):
+        for k, fn in forms.items():
+            rounds[k].append(cuda_ms(fn, iters=20))
+    e2e = {k: min(v) for k, v in rounds.items()}
+    enq = {k: stages.enqueue_ms(forms[k], 20, dev) for k in ("replay", "eager")}
+    with tempfile.TemporaryDirectory() as d:
+        tr = {k: stages.trace_steps(forms[k], 8, dev, d, f"graphs_{k}")
+              for k in ("replay", "eager")}
+    k2_named = {k: stages.named_count(v, "nuc_scores_kernel") for k, v in tr.items()}
+    rk = tr["replay"]["replay_kernels"]
+    if k2_named != {"replay": 8, "eager": 8} or len(rk) != 8 or len(set(rk)) != 1:
+        raise AssertionError(f"graphs: the traces of 8 steps name K2 {k2_named} times, "
+                             f"{len(rk)} cudaGraphLaunch calls of {rk} kernels")
+    pool_mb = {k: e.programs.pool_bytes / 1e6 for k, e in
+               (("phase 5", eng), ("diag_pallas", dp), ("two shards", sh))}
+    wall = time.perf_counter() - t_phase
+    phase("graphs", f"phase 5's run {run5['captures']} captures, {run5['replays']} replays; "
+          f"{n} batches of {B} windows: replay == eager bytes ({dict(launches)}, no new "
+          f"capture); run_step_delta12 and run_step_delta replays == eager == pool2 on 2 "
+          f"batches; diag_pallas {dp_launches} and two shards on {CARD} {sh_launches} "
+          f"replays == eager; graph pools {', '.join(f'{k} {v:.1f} MB' for k, v in pool_mb.items())}"
+          f", memory_reserved {reserved0 / 1e6:.1f} -> {reserved1 / 1e6:.1f} MB over the "
+          f"diag_pallas and two-shard captures; e2e_device (least of 3 rounds of 20) replay "
+          f"{e2e['replay']:.4f} ms, eager {e2e['eager']:.4f} ms, two shards replayed "
+          f"{e2e['two shards']:.4f} ms ({e2e['two shards'] / e2e['replay']:.2f}x one card); "
+          f"enqueue replay {enq['replay']:.4f} ms, eager {enq['eager']:.4f} ms; trace of 8: "
+          f"replay {tr['replay']['kernels_per_batch']:.1f} kernels/batch, "
+          f"{tr['replay']['graph_launches']} cudaGraphLaunch of {rk[0]} kernels each, busy "
+          f"{tr['replay']['busy_share']:.1%}; eager {tr['eager']['kernels_per_batch']:.1f} "
+          f"kernels/batch, busy {tr['eager']['busy_share']:.1%}; phase {wall:.1f} s; {smi()}")
+    return {"nuc_scores": launches["nuc_scores"] + sh_launches["nuc_scores"],
+            "diag_xcorr": dp_launches["diag_xcorr"], "e2e_ms": e2e, "enqueue_ms": enq,
+            "busy": {k: v["busy_share"] for k, v in tr.items()}, "wall_s": wall}
 
 
 def phase_parity() -> None:
@@ -1993,6 +2196,7 @@ def main() -> int:
         forms = phase_forms(data, run5)
         profiling = phase_profiling(data, run5)
         bench = phase_bench(data, run5)
+        graphs = phase_graphs(data, run5)
         phase_parity()
         stages_k2 = phase_stages(data, run5)
         k1_launches = phase_conv(data, run5)
@@ -2016,12 +2220,14 @@ def main() -> int:
                        "forms": forms["nuc_scores"], "stages": stages_k2,
                        "hosts": hosts["nuc_scores"], "nonexact": nonexact["nuc_scores"],
                        "profile": profiling["nuc_scores"], "bench": bench,
+                       "graphs": graphs["nuc_scores"],
                        **wires["nuc_scores"]},
         "diag_xcorr": {"conv": k1_launches, "devices_diag_pallas": devices["diag_xcorr"],
                        "tracks_dryrun": tracks["diag_xcorr_dryrun"],
                        "forms_diag_pallas": forms["diag_xcorr"],
                        "nonexact_diag_pallas": nonexact["diag_xcorr"],
-                       "profile": profiling["diag_xcorr"], **wires["diag_xcorr"]},
+                       "profile": profiling["diag_xcorr"],
+                       "graphs_diag_pallas": graphs["diag_xcorr"], **wires["diag_xcorr"]},
     }
     for rec in KERNEL_RECORDS:
         rec["launches"] = launches[rec["name"]]

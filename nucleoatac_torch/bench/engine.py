@@ -14,7 +14,9 @@ the loop as production has them. ``--wire delta`` is also
 scripts/roofline.py's ``pipe`` row (the same loop on run_step_delta).
 ``--breakdown`` splits a repeat into the host encode, the loop without it
 and the pinning of its host buffers, and prints the resident set after
-each repeat.
+each repeat. On a card both steps replay their CUDA graph (models/graphs.py),
+captured in the warm-up: the line gives the engine's captures and the
+bytes its graph pools reserve.
 
 vs_baseline divides by the time per window of the port's float64 mirror
 (nucleoatac_torch/mirror: rasterize, occupancy_window, bias_mat with the
@@ -302,6 +304,8 @@ def bench(args, hold=None) -> dict:
         "frag_cap": F,
         "batches": args.batches,
         "steps": eng.steps,
+        "captures": eng.programs.captures,
+        "graph_pool_bytes": eng.programs.pool_bytes,
         "cpu_windows_per_s": round(cpu_wps, 4),
         "cpu_windows": n_cpu,
         "host_cores": os.cpu_count(),

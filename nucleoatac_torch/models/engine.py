@@ -31,6 +31,15 @@ a dense raster or a wire's raster, on the same stage functions. The
 reference's full_impl* / occ_impl / nuc_impl are these steps before jit;
 here the *_step forms stand for them.
 
+On a card the four fused steps (run_step_pool2, run_step_pool,
+run_step_delta12, run_step_delta) run as step programs, the counterpart
+of the reference's jit-compiled executables: each shard's chain is
+captured once per input signature into a CUDA graph and replayed after
+(models/graphs.py; ``programs`` holds the entries and their counts). The
+eager chains (_run_pool2, _run_pool, _run_delta12, _run_delta) are the
+reference's *_impl forms before jit: the profiler and chip_smoke time and
+compare them. On the CPU every step runs eagerly.
+
 The template xcorr follows ``cfg.window.conv``, unless ``use_pallas`` sends
 every route to K2 as the reference's switch does: "diag" runs the K2 kernel
 (ops/nuc_scores.py, xcorr and epilogue in one launch); "diag_pallas" runs
@@ -62,11 +71,14 @@ from nucleoatac_torch.core.fragmentsizes import FragmentSizes
 from nucleoatac_torch.core.mixture import FragmentMixDistribution
 from nucleoatac_torch.core.vmat import VMat
 from nucleoatac_torch.device import resolve_device, to_device
+from nucleoatac_torch.models.graphs import StepPrograms
 from nucleoatac_torch.models.params import (
     engine_tables_from_numpy,
     host_tables,
     size_probs64,
 )
+from nucleoatac_torch.ops import diag_xcorr as k1_ops
+from nucleoatac_torch.ops import nuc_scores as k2_ops
 from nucleoatac_torch.ops.biasmat import bias_mat_batch
 from nucleoatac_torch.ops.diag_xcorr import nuc_conv_outputs
 from nucleoatac_torch.ops.nuc_scores import nuc_scores
@@ -274,6 +286,9 @@ class TorchEngine:
         self.core_hi = self.width - self.halo
         self.core = cfg.window.core
         self.steps = 0  # nuc batches dispatched, per shard (every _scores call)
+        # the fused steps' CUDA graphs; a replay adds the counts its capture saw
+        self.programs = StepPrograms(
+            [(k2_ops, "LAUNCHES"), (k1_ops, "LAUNCHES"), (self, "steps")])
 
     def smooth_margin(self) -> int:
         """Columns of norm needed on each side of the core to reproduce the
@@ -596,33 +611,48 @@ class TorchEngine:
         return self._run(self._raster_pool(pool, table, emax),
                          self._logbias_2bit(packed2, esc))
 
+    def _run_delta(self, db, packed_codes):
+        return self._run(self._raster_delta(db), self._logbias_nib(packed_codes))
+
+    def _run_delta12(self, buf, packed_codes):
+        return self._run(self._raster_delta12(buf), self._logbias_nib(packed_codes))
+
     def _pool(self, pool):
         return pool if isinstance(pool, Replicated) else self.replicate(pool)
+
+    def _program(self, name: str, chain):
+        """``chain`` as the step program ``name``: captured and replayed
+        through ``programs`` on a card, run as itself on the CPU."""
+        def run(*args):
+            if next(a for a in args if isinstance(a, torch.Tensor)).device.type == "cuda":
+                return self.programs(name, chain, *args)
+            return chain(*args)
+        return run
 
     def run_step_pool(self, pool, table, packed_codes, emax: int):
         """Wire v7 fragments + nibble sequence codes (the fallback when a
         batch has more N bases than the 2-bit escape list holds)."""
-        return self.shard(self._run_pool, self._pool(pool), table, packed_codes, emax)
+        return self.shard(self._program("run_step_pool", self._run_pool),
+                          self._pool(pool), table, packed_codes, emax)
 
     def run_step_pool2(self, pool, table, packed2, esc, emax: int):
         """Wire v7 fragments + wire v9 2-bit sequence plane (the main
         path's dispatch)."""
-        return self.shard(self._run_pool2, self._pool(pool), table, packed2,
+        return self.shard(self._program("run_step_pool2", self._run_pool2),
+                          self._pool(pool), table, packed2,
                           Escapes(esc, self.seq_codes_width()), emax)
 
     def run_step_delta(self, db, packed_codes):
         """2-byte (delta, size) pairs + nibble sequence codes: run_step_pool's
         bytes on the same windows (the reference's fused delta step)."""
-        return self.shard(
-            lambda d, c: self._run(self._raster_delta(d), self._logbias_nib(c)),
-            db, packed_codes)
+        return self.shard(self._program("run_step_delta", self._run_delta),
+                          db, packed_codes)
 
     def run_step_delta12(self, buf, packed_codes):
         """Wire v6 records + nibble sequence codes: run_step_pool's bytes on
         the same windows (the reference's fused delta12 step)."""
-        return self.shard(
-            lambda b, c: self._run(self._raster_delta12(b), self._logbias_nib(c)),
-            buf, packed_codes)
+        return self.shard(self._program("run_step_delta12", self._run_delta12),
+                          buf, packed_codes)
 
     def occ_step_pool_p2(self, pool, table, emax: int):
         """Wire v7 fragments -> wire-v8 occ bytes."""

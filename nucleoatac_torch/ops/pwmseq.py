@@ -29,7 +29,9 @@ def unpack_2bit_codes(packed: torch.Tensor, wp: int, esc: torch.Tensor) -> torch
         dim=1,
     )
     esc = esc.long()
-    ext[esc[:, 0], esc[:, 1]] = 4
+    # the 4 is made on the codes' device, so that the scatter copies
+    # nothing from the host (a CUDA graph capture admits no host copy)
+    ext.index_put_((esc[:, 0], esc[:, 1]), ext.new_full((), 4))
     return ext[:, :wp]
 
 

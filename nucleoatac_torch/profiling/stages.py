@@ -11,6 +11,15 @@ host buffer per iteration), the download of freshly computed outputs, and
 synchronise (if it reaches ``e2e_device``, the chain is bound by its
 launches).
 
+On a card the pool2 step is a step program (models/graphs.py): the public
+step replays its CUDA graph, so ``e2e_device`` and ``enqueue`` time the
+replay, and ``e2e_eager`` and ``enqueue_eager`` time the eager chain
+(TorchEngine._run_pool2, the reference's step before jit) on the same
+inputs; ``captures`` counts the engine's graphs. The stage rows stay
+eager: they are the stage methods. On the CPU, and on the delta wire's
+named steps, both forms are the eager chain and the report says so
+(``step_form``).
+
 Times on the card are CUDA events around ``iters`` launches after a
 warm-up, the median of three rounds (the reference's median of three, with
 events in place of block_until_ready). Each row carries its least time on
@@ -36,11 +45,13 @@ reference's convs and the epilogue of its finish in one launch);
 _finish, with each K1 launch also timed alone (rows outside the sum);
 "direct" is _convs (two conv1d) and _finish.
 
-``--trace DIR`` takes one torch.profiler trace of 8 steps in a row and reads it back (read_trace): kernels per batch, the
-device's busy share, the device operations with the most time and the
-longest idle gaps between device operations, each with the host op that
-was running then. ``--shards 2`` runs the step sharded over two copies of
-the device; the stage rows stay whole batches on the first.
+``--trace DIR`` takes one torch.profiler trace of 8 (replayed) steps in a
+row and reads it back (read_trace): kernels per batch, the host's
+cudaGraphLaunch calls, the device's busy share, the device operations
+with the most time and the longest idle gaps between device operations,
+each with the host op that was running then. ``--shards 2`` runs the step
+sharded over two copies of the device; the stage rows stay whole batches
+on the first.
 
 Run: python3 -m nucleoatac_torch.profiling.stages [--batch 64]
 [--core 1024] [--frags 2048] [--iters 20] [--wire pool2|delta]
@@ -333,13 +344,21 @@ def composed(rows: list, wire: str = "pool2"):
     return rows[-1].out if wire == "pool2" else (rows[1].out, rows[-1].out)
 
 
-def step_fn(eng, batch: dict, wire: str = "pool2"):
+def step_fn(eng, batch: dict, wire: str = "pool2", eager: bool = False):
     """The whole public step on the batch, inputs resident on the first
     device (the pool replicated to every shard once, as a run uploads it
-    once per group)."""
+    once per group). With ``eager``, pool2's step runs the eager chain
+    (_run_pool2, sharded as the step shards it) in place of its step
+    program; the delta wire's named steps are eager either way."""
+    from nucleoatac_torch.models.engine import Escapes
+
     t = resident(eng, batch)
     if wire == "pool2":
         pool = eng.replicate(batch["pool"]) if len(eng.devices) > 1 else t["pool"]
+        if eager:
+            esc = Escapes(t["esc"], eng.seq_codes_width())
+            return lambda: eng.shard(eng._run_pool2, pool, t["table"], t["packed2"], esc,
+                                     t["emax"])
         return lambda: eng.run_step_pool2(pool, t["table"], t["packed2"], t["esc"],
                                           t["emax"])
     return lambda: (eng.occ_step_delta_c(t["db"]), eng.nuc_step_delta_seq_c(t["db"], t["nib"]))
@@ -440,10 +459,12 @@ RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
 def read_trace(path: str, n_batches: int, device_type: str = "cuda",
                n_gaps: int = 5) -> dict:
     """Summary of a torch.profiler chrome trace of ``n_batches`` steps:
-    kernels per batch, the device's busy share (the union of its
-    operations' intervals over their span, first start to last end), the
-    count of each kernel name, and the ``n_gaps`` longest idle gaps
-    between device operations. Each gap names the host op running at its
+    kernels per batch, the host's cudaGraphLaunch calls and the kernels
+    each one ran (by its correlation id: a replay whose kernel records were
+    lost shows fewer than the others), the device's busy
+    share (the union of its operations' intervals over their span, first
+    start to last end), the count of each kernel name, and the ``n_gaps``
+    longest idle gaps between device operations. Each gap names the host op running at its
     midpoint (None: Python between ops), the device op that ended it, the
     host op that launched that one (through the launch's correlation id)
     and how long before the gap's end the launch call began: a launch
@@ -466,7 +487,9 @@ def read_trace(path: str, n_batches: int, device_type: str = "cuda",
             union.append([e["t0"], e["t1"], e])
     t0, t1 = union[0][0], union[-1][1]
     busy = sum(b - a for a, b, _ in union)
-    host = [e for e in events if e.get("cat") in HOST_CATS]
+    # the profiler's own step span covers the whole window: it names no gap
+    host = [e for e in events if e.get("cat") in HOST_CATS
+            and not e["name"].startswith("ProfilerStep#")]
     launch = {e["args"]["correlation"]: e for e in events
               if e.get("cat") in RUNTIME_CATS and "correlation" in e.get("args", {})}
 
@@ -485,10 +508,17 @@ def read_trace(path: str, n_batches: int, device_type: str = "cuda",
     gaps = sorted(zip(union, union[1:]), key=lambda p: p[0][1] - p[1][0])[:n_gaps]
     kernel_cats = ("kernel",) if device_type == "cuda" else ("cpu_op",)
     names = Counter(e["name"] for e in events if e.get("cat") in kernel_cats)
+    graph_calls = sorted((e for e in events if e.get("cat") in RUNTIME_CATS
+                          and "cudaGraphLaunch" in e["name"]), key=lambda e: e["t0"])
+    per_call = Counter(e.get("args", {}).get("correlation") for e in events
+                       if e.get("cat") in kernel_cats)
     return {
         "batches": n_batches, "span_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
         "busy_share": busy / (t1 - t0) if t1 > t0 else 1.0,
         "device_ops": len(dev), "kernels_per_batch": sum(names.values()) / n_batches,
+        "graph_launches": len(graph_calls),
+        "replay_kernels": [per_call[e.get("args", {}).get("correlation")]
+                           for e in graph_calls],
         "kernel_counts": dict(names.most_common()),
         "gaps": [gap(p, q) for p, q in gaps], "trace": path,
     }
@@ -503,13 +533,17 @@ def named_count(summary: dict, name: str) -> int:
 def trace_steps(step, n: int, dev: torch.device, trace_dir: str, tag: str) -> dict:
     """One torch.profiler trace (CPU, and CUDA on a card) of ``n`` steps
     in a row after a warm-up, written to ``trace_dir``; read_trace's
-    summary plus the 8 ops with the most (device) self time."""
-    from torch.profiler import ProfilerActivity, profile
+    summary plus the 8 ops with the most (device) self time. The warm-up
+    step runs in the profiler's own warm-up phase, traced and dropped:
+    the first graph replay that CUPTI sees after it attaches can lose
+    kernel records."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    step()
-    _sync(dev)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        step()
+        _sync(dev)
+        prof.step()  # the record window opens here, on an idle card
         for _ in range(n):
             step()
         _sync(dev)
@@ -542,7 +576,8 @@ def profile_stages(eng, batch: dict, wire: str = "pool2", iters: int = 20,
     dev, shards = eng.device, len(eng.devices)
     cuda = dev.type == "cuda"
     rows = stage_rows(eng, batch, wire)
-    step = step_fn(eng, batch, wire)
+    step, eager = step_fn(eng, batch, wire), step_fn(eng, batch, wire, eager=True)
+    step()  # a step program's first call captures it: the next one replays
     want, got = composed(rows, wire), step()
     pairs = list(zip(want if isinstance(want, tuple) else (want,),
                      got if isinstance(got, tuple) else (got,)))
@@ -555,15 +590,18 @@ def profile_stages(eng, batch: dict, wire: str = "pool2", iters: int = 20,
     calls = 1 + 3 * iters  # time_ms and enqueue_ms
     report_rows = {}
 
+    def check(name, launched, per_call):
+        if cuda and any(launched.get(k, 0) != n * calls for k, n in zip(KERNELS, per_call)):
+            raise RuntimeError(f"profile: row {name} launched {launched} in "
+                               f"{calls} calls; expected {per_call} per call")
+
     def add(name, ms, nbytes, flops=0.0, in_sum=False, note="", per_call=None, launched=None,
             bd=None):
         r = {"ms": ms, "bytes": nbytes, "flops": flops, "in_sum": in_sum, "note": note}
         if per_call is not None:
             r["calls"] = calls
             r["launches"] = {k: launched.get(k, 0) for k in KERNELS}
-            if cuda and any(r["launches"][k] != n * calls for k, n in zip(KERNELS, per_call)):
-                raise RuntimeError(f"profile: row {name} launched {r['launches']} in "
-                                   f"{calls} calls; expected {per_call} per call")
+            check(name, r["launches"], per_call)
         if cuda and bd is not None:
             r.update(bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
                      share=bd["bound_ms"] / ms)
@@ -580,7 +618,9 @@ def profile_stages(eng, batch: dict, wire: str = "pool2", iters: int = 20,
             row.per_call, launched, bound(row.tc_flops, row.fp32_flops, row.nbytes))
     summed = [r for r in report_rows.values() if r["in_sum"]]
     stage_sum = sum(r["ms"] for r in summed)
+    replays = eng.programs.replays
     ms, launched = counted(time_ms, step)
+    replayed = eng.programs.replays > replays
     # the chain's least time: the sum of its stages' bounds
     chain = {"bound_ms": sum(r["bound_ms"] for r in summed), "bound_by": "the stages' sum"} \
         if cuda else None
@@ -590,6 +630,10 @@ def profile_stages(eng, batch: dict, wire: str = "pool2", iters: int = 20,
     ms, launched = counted(enqueue_ms, step)
     add("enqueue", ms, 0, note="host clock to enqueue one step, no synchronise",
         per_call=steps_per_call, launched=launched)
+    eager_ms = {}
+    for name, timer in (("e2e_eager", time_ms), ("enqueue_eager", enqueue_ms)):
+        eager_ms[name], launched = counted(timer, eager)
+        check(name, launched, steps_per_call)
     ups = ([batch[k] for k in ("table", "packed2", "esc")] if wire == "pool2"
            else [batch["db"], batch["nib"]])
     add("upload", upload_ms(ups, iters, dev), sum(a.nbytes for a in ups),
@@ -612,6 +656,10 @@ def profile_stages(eng, batch: dict, wire: str = "pool2", iters: int = 20,
         "sum_over_e2e": stage_sum / e2e, "enqueue_ms": report_rows["enqueue"]["ms"],
         "launch_bound": report_rows["enqueue"]["ms"] >= e2e,
         "composed_equal": same, "out_bytes": _nbytes(got),
+        "step_form": "replayed CUDA graph" if replayed else "eager",
+        "e2e_eager_ms": eager_ms["e2e_eager"], "enqueue_eager_ms": eager_ms["enqueue_eager"],
+        "captures": eng.programs.captures, "replays": eng.programs.replays,
+        "graph_pool_bytes": eng.programs.pool_bytes,
     }
     if trace_dir:
         tag = f"{wire}_{eng.conv}_x{shards}"
@@ -641,10 +689,15 @@ def format_report(rep: dict) -> str:
                  f"{rep['e2e_device_ms']:.4f} ms/batch (ratio {rep['sum_over_e2e']:.3f}); "
                  f"enqueue {rep['enqueue_ms']:.4f} ms/batch: "
                  f"{'bound by launches' if rep['launch_bound'] else 'below e2e_device'}")
+    lines.append(f"# step form: {rep['step_form']}; the eager chain e2e "
+                 f"{rep['e2e_eager_ms']:.4f} ms/batch, enqueue {rep['enqueue_eager_ms']:.4f} "
+                 f"ms/batch; {rep['captures']} captures, graph pools "
+                 f"{rep['graph_pool_bytes'] / 1e6:.1f} MB")
     tr = rep.get("trace")
     if tr:
         lines.append(f"# trace of {tr['batches']} batches: {tr['kernels_per_batch']:.1f} "
-                     f"kernels/batch, busy {tr['busy_share']:.1%} of {tr['span_ms']:.3f} ms")
+                     f"kernels/batch, {tr['graph_launches']} cudaGraphLaunch calls, busy "
+                     f"{tr['busy_share']:.1%} of {tr['span_ms']:.3f} ms")
         for op in tr["top_ops"]:
             lines.append(f"#   {op['ms_per_batch']:8.4f} ms/batch {op['calls_per_batch']:5.1f}x "
                          f"{op['name'][:90]}")

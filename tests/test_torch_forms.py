@@ -48,8 +48,9 @@ from test_torch_transfer import (  # noqa: F401 (example is a fixture)
 T = torch.from_numpy
 STEP = re.compile(r"^(occ|nuc|full|run)_(step|impl)")
 DECODERS = ("f32_from_u24", "f32_from_u16", "unpack_run", "decode_occ2")
-# DeviceEngine's steps before jit (for its compile checks); PyTorch has no
-# jit split, so the *_step forms stand for them
+# DeviceEngine's float-track steps before jit (for its compile checks): the
+# *_step forms stand for them (the fused steps' pre-jit forms are the eager
+# chains _run_pool2, _run_pool, _run_delta12 and _run_delta)
 PRE_JIT = {"full_impl", "full_impl_delta_seq", "full_impl_frags", "full_impl_packed",
            "full_impl_packed_seq", "occ_impl", "nuc_impl"}
 

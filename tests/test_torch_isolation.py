@@ -64,6 +64,7 @@ PORT_MODULES = [
     "nucleoatac_torch.ops.nuc_scores",
     "nucleoatac_torch.models",
     "nucleoatac_torch.models.params",
+    "nucleoatac_torch.models.graphs",
     "nucleoatac_torch.models.engine",
     "nucleoatac_torch.models.occ",
     "nucleoatac_torch.models.nuc",

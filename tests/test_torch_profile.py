@@ -10,10 +10,15 @@ DeviceEngine (CPU backend) on the same numpy-seeded batch:
     package's bars (test_torch_transfer); u16 and pack bytes equal on
     equal inputs (test_torch_engine);
   * the composed rows are the whole step's bytes, in both packages;
+  * on the CPU the report names both step forms eager and counts no
+    capture; the eager form of the step prints its bytes, one device or
+    two shards; the trace reader counts cudaGraphLaunch calls and each
+    replay's kernels; a trace holds its steps and not its warm-up;
   * the FLOP model is the reference's, and bound() gives the kernel
     records' bounds;
   * both profilers refuse "cuda" without a card;
-  * a CPU trace reads back, and the reader measures a handmade trace;
+  * a CPU trace reads back, and the reader measures a handmade trace
+    (a gap under the profiler's own step span names no host op);
   * the finishing profile prints every component group and changes no
     output byte;
   * the fused pass's timers are never negative (the final drain is its
@@ -184,6 +189,62 @@ def test_profile_rows_on_every_route(engines, wire, conv):
     assert "stage sum" in stages.format_report(rep)
 
 
+@pytest.mark.parametrize("wire", ["pool2", "delta"])
+def test_cpu_report_says_both_forms_are_eager(engines, wire):
+    """On the CPU no step program exists: the report names the step form
+    eager, times the eager chain beside e2e_device as what it is, and
+    counts no capture, replay or graph pool."""
+    _, teng, batch = engines
+    eng = teng["diag"]
+    rep = stages.profile_stages(eng, batch, wire, iters=1)
+    assert rep["step_form"] == "eager"
+    assert (rep["captures"], rep["replays"], rep["graph_pool_bytes"]) == (0, 0, 0)
+    assert rep["e2e_eager_ms"] > 0 and rep["enqueue_eager_ms"] > 0
+    assert "step form: eager" in stages.format_report(rep)
+    assert eng.programs.entries == {}
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_eager_step_prints_the_steps_bytes(engines, shards):
+    """step_fn's eager form (the chain before its step program, sharded as
+    the step shards it) gives the public step's bytes."""
+    jeng, teng, batch = engines
+    eng = teng["diag"] if shards == 1 else _tiny_engine(
+        core=256, batch=2, device=["cpu"] * shards)[1]
+    got = stages.step_fn(eng, batch, "pool2", eager=True)()
+    assert torch.equal(got, stages.step_fn(eng, batch, "pool2")())
+    assert torch.equal(got, stages.step_fn(teng["diag"], batch, "pool2")())
+
+
+def test_read_trace_counts_graph_launches(tmp_path):
+    """Two replays of a captured step: two cudaGraphLaunch calls on the
+    host, the graph's kernels counted as kernels."""
+    ev = [{"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 10 * i,
+           "dur": 2, "args": {"correlation": i}} for i in (1, 2)]
+    ev += [{"ph": "X", "cat": "kernel", "name": f"k{j}", "ts": 10 * i + 3 + j, "dur": 1,
+            "args": {"correlation": i}} for i in (1, 2) for j in (0, 1, 2)]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    tr = stages.read_trace(str(path), n_batches=2)
+    assert tr["graph_launches"] == 2 and tr["kernels_per_batch"] == 3
+    assert tr["replay_kernels"] == [3, 3]
+
+
+def test_read_trace_shows_a_replay_that_lost_records(tmp_path):
+    """The first replay's first kernel record is missing: that replay
+    shows 2 kernels against the second's 3; an eager kernel (its own
+    correlation id) counts for no replay."""
+    ev = [{"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 10 * i,
+           "dur": 2, "args": {"correlation": i}} for i in (1, 2)]
+    ev += [{"ph": "X", "cat": "kernel", "name": f"k{j}", "ts": 10 * i + 3 + j, "dur": 1,
+            "args": {"correlation": i}} for i in (1, 2) for j in (0, 1, 2) if (i, j) != (1, 0)]
+    ev += [{"ph": "X", "cat": "kernel", "name": "copy", "ts": 30, "dur": 1,
+            "args": {"correlation": 7}}]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    assert stages.read_trace(str(path), n_batches=2)["replay_kernels"] == [2, 3]
+
+
 def test_flop_model_is_the_references():
     """profile_stages.py:163-170, from the reference's own RunConfig."""
     from nucleoatac_tpu.config import RunConfig as JRunConfig
@@ -242,6 +303,16 @@ def test_cpu_trace_reads_back(engines, tmp_path):
     assert tr["top_ops"] and all(op["ms_per_batch"] > 0 for op in tr["top_ops"])
 
 
+@pytest.mark.parametrize("n", [1, 3])
+def test_trace_holds_the_steps_and_not_the_warm_up(tmp_path, n):
+    """The warm-up step runs inside the session, in the profiler's
+    warm-up phase, and is dropped: the trace names n steps' ops."""
+    x = torch.ones(16, 16)
+    tr = stages.trace_steps(lambda: torch.mm(x, x), n, torch.device("cpu"), str(tmp_path),
+                            f"n{n}")
+    assert tr["kernel_counts"]["aten::mm"] == n and tr["batches"] == n
+
+
 def test_read_trace_measures_a_handmade_trace(tmp_path):
     """Three kernels over 0-100 µs, one memcpy overlapping the first: busy
     40 + 10 + 20 of 100 µs; the 40 µs gap before k3, whose launch began
@@ -270,6 +341,19 @@ def test_read_trace_measures_a_handmade_trace(tmp_path):
     assert g0["launch_before_end_ms"] == pytest.approx(0.005)
     assert (g1["ms"], g1["next_op"], g1["launched_by"]) == (pytest.approx(0.010),
                                                           "nuc_scores_kernel(x)", None)
+
+
+def test_read_trace_names_no_gap_after_the_profiler_step(tmp_path):
+    """The profiler's ProfilerStep#1 span covers the traced window: a gap
+    with only Python on the host still names no host op."""
+    ev = [{"ph": "X", "cat": "kernel", "name": f"k{i}", "ts": 50 * i, "dur": 10,
+           "args": {"correlation": i}} for i in (0, 1)]
+    ev += [{"ph": "X", "cat": "user_annotation", "name": "ProfilerStep#1", "ts": 0, "dur": 70},
+           {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 12, "dur": 5}]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    (gap,) = stages.read_trace(str(path), n_batches=2)["gaps"]
+    assert gap["ms"] == pytest.approx(0.040) and gap["host"] is None
 
 
 def test_finish_profile_groups_and_bytes(tmp_path):
@@ -333,6 +417,7 @@ def test_profile_on_the_card_has_bounds_and_launches():
     rep = stages.profile_stages(eng, stages.synthetic_batch(eng, frags=256), "pool2",
                                 iters=2)
     assert rep["device"] == "cuda" and rep["composed_equal"]
+    assert rep["step_form"] == "replayed CUDA graph" and rep["captures"] == 1
     for name, r in rep["rows"].items():
         if r["in_sum"]:
             assert r["bound_ms"] > 0 and 0 < r["share"], name
