@@ -24,10 +24,18 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 [F; B0], which computes the four 2-D sums only.
   4b. LL      — occupancy log-likelihood vs float64 at production shape
                 (max |LL - f64| must stay within OccParams.exact_tol).
+  4c. OCC     — K3 (occ_window: the f64 window sums, picks and wire-v8
+                pack in one launch) against its plain version on the same
+                projection and column counts at production shape: equal
+                bytes; timed in turns with the plain version (CUDA events,
+                2 warm-ups, mean of 20), alone and with the SGEMM before it
+                (occupancy_packed2 against its torch form), beside its
+                bound (the projection's core and halo read once, K3's f64
+                adds on the FP64 pipes).
   5. run      — nucleoatac_torch run_pipeline on the card with the default
                 RunConfig on synthetic data (1,000 peaks); K2 launches ==
-                nuc batches (each replay of a fused step's CUDA graph
-                counts the launches its capture recorded). Every fused
+                K3 launches == nuc batches (each replay of a fused step's
+                CUDA graph counts the launches its capture recorded). Every fused
                 step of every later phase replays its graph.
   5b. devices — the one-process multi-device run: run_pipeline with the
                 default RunConfig on phase 5's dataset, each batch of 64
@@ -175,7 +183,8 @@ import time
 
 sys.modules["jax"] = None  # the port must run without JAX
 
-from nucleoatac_torch.profiling.stages import bound, k1_work, k2_work, smi  # noqa: E402
+from nucleoatac_torch.profiling.stages import (  # noqa: E402
+    bound, k1_work, k2_work, k3_bound, smi)
 from nucleoatac_torch.synthetic import make_example, make_long_example, synth_dataset  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -568,6 +577,82 @@ def phase_ll() -> None:
           f"{scale:.1f} (occ.exact_tol {cfg.occ.exact_tol})")
 
 
+def phase_occ() -> None:
+    """K3 against its plain version at production shape, and timed."""
+    import numpy as np
+    import torch
+
+    from nucleoatac_torch.config import RunConfig
+    from nucleoatac_torch.core.fragmentsizes import FragmentSizes
+    from nucleoatac_torch.core.mixture import FragmentMixDistribution
+    from nucleoatac_torch.ops import occ_window as k3
+    from nucleoatac_torch.ops.occupancy import (
+        occupancy_packed2, occupancy_packed2_plain, packed2_from_proj, projection_and_counts)
+
+    cfg = RunConfig()
+    dev = torch.device(CARD)
+    s = np.arange(cfg.sizes.lower, cfg.sizes.upper, dtype=np.float64)
+    counts = (2e4 * np.exp(-s / 45.0)
+              + 1.5e4 * np.exp(-0.5 * ((s - 147) / 20) ** 2)).astype(np.int64)
+    fs = FragmentSizes(cfg.sizes.lower, cfg.sizes.upper, counts)
+    mix = FragmentMixDistribution(cfg.sizes.lower, cfg.sizes.upper).fit(fs)
+    lm = torch.as_tensor(np.asarray(mix.log_mix_table(cfg.occ), np.float32), device=dev)
+    B, W = cfg.window.batch, cfg.window.width(cfg.occ, cfg.vmat)
+    halo, core, p = cfg.window.halo(cfg.occ, cfg.vmat), cfg.window.core, cfg.occ
+    mat, _ = _synthetic_batch(dev, B, W, np.random.default_rng(4))
+    # a stretch with no fragments in half the windows: empty positions
+    mat[::2, :, halo + 100:halo + 300] = 0
+    G = lm.shape[1]
+    pc = projection_and_counts(mat, lm)
+    proj, n = pc[:, :G], pc[:, G]
+    if not torch.equal(n, mat.sum(dim=1)):
+        raise AssertionError("the SGEMM's counts row differs from the column sums")
+    args = (p.flank, halo, core, p.ci_drop, p.exact_tol)
+    n0 = k3.LAUNCHES
+    got = k3.occ_window(proj, n, *args)
+    want = packed2_from_proj(proj, n, *args)
+    whole = occupancy_packed2(mat, lm, *args)
+    whole_plain = occupancy_packed2_plain(mat, lm, *args)
+    torch.cuda.synchronize()
+    if k3.LAUNCHES != n0 + 2:
+        raise AssertionError(f"K3 launched {k3.LAUNCHES - n0} times for 2 calls")
+    for what, a, b in (("K3", got, want), ("occupancy_packed2 vs K3", whole, got)):
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()
+            raise AssertionError(f"{what} bytes differ from the plain version's at "
+                                 f"{bad.shape[0]} places, first {bad[:4].tolist()}")
+    # the torch form's einsum is another SGEMM call: its picks agree
+    # wherever both certify
+    cert = (got[:, :core] >> 7).bool()
+    both = cert & (whole_plain[:, :core] >> 7).bool()
+    if not torch.equal(whole[:, :core][both], whole_plain[:, :core][both]) or \
+            float(both.float().mean()) < 0.5:
+        raise AssertionError("occupancy_packed2 and its torch form disagree where both "
+                             "certify")
+    same_plain = torch.equal(whole, whole_plain)
+    empty = got[:, :core] == 0
+    times = {"ms": [], "plain_ms": [], "whole_ms": [], "whole_plain_ms": []}
+    for _ in range(3):  # in turns
+        times["ms"].append(cuda_ms(lambda: k3.occ_window(proj, n, *args), iters=20))
+        times["plain_ms"].append(cuda_ms(lambda: packed2_from_proj(proj, n, *args), iters=20))
+        times["whole_ms"].append(cuda_ms(lambda: occupancy_packed2(mat, lm, *args), iters=20))
+        times["whole_plain_ms"].append(
+            cuda_ms(lambda: occupancy_packed2_plain(mat, lm, *args), iters=20))
+    t = {k: min(v) for k, v in times.items()}
+    bd = k3_bound(B, G, W, halo, core, p.flank)
+    phase("OCC", f"occ_window [64,{G},{W}] core {core} flank {p.flank}: bytes equal to "
+          f"the plain version's on the same projection and counts; occupancy_packed2's "
+          f"bytes {'equal to' if same_plain else 'where both certify equal to'} its torch "
+          f"form's ({float(cert.float().mean()):.1%} certified, "
+          f"{float(empty.float().mean()):.1%} read 0); K3 {t['ms']:.4f} ms vs plain "
+          f"{t['plain_ms']:.4f} ms; occupancy_packed2 (the SGEMM with the counts' row, K3) "
+          f"{t['whole_ms']:.4f} ms vs its torch form {t['whole_plain_ms']:.4f} ms; bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {bd['adds'] / 1e9:.3f} G f64 adds, "
+          f"{bd['direct_adds'] / 1e9:.3f} G window by window; {bd['bytes'] / 1e6:.1f} MB), "
+          f"{bd['bound_ms'] / t['ms']:.1%} of it; "
+          f"runs {times} on {smi()}")
+
+
 def make_dataset(d: str, n_peaks: int = 1000) -> dict:
     """Phase 5's synthetic data (4 chroms x n_peaks/4 peaks x 2,000 bp x
     2,000 fragments per peak), shared by phases 7, 8 and 10."""
@@ -580,9 +665,11 @@ def make_dataset(d: str, n_peaks: int = 1000) -> dict:
 def reset_launches() -> None:
     from nucleoatac_torch.ops import diag_xcorr as k1
     from nucleoatac_torch.ops import nuc_scores as k2
+    from nucleoatac_torch.ops import occ_window as k3
 
     k1.LAUNCHES = 0
     k2.LAUNCHES = 0
+    k3.LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -617,6 +704,10 @@ def phase_run(data: dict) -> dict:
         raise AssertionError(
             f"nuc_scores launched {launches['nuc_scores']} times for "
             f"{steps} batches")
+    from nucleoatac_torch.ops import occ_window as k3
+
+    if k3.LAUNCHES != steps:
+        raise AssertionError(f"occ_window launched {k3.LAUNCHES} times for {steps} batches")
     for sfx in RUN_SUFFIXES:
         for path in (prefix + sfx, prefix + sfx + ".tbi"):
             if not os.path.exists(path):
@@ -632,7 +723,7 @@ def phase_run(data: dict) -> dict:
           f"{cfg.window.batch}: run_pipeline {wall:.2f} s = "
           f"{windows / wall:.1f} windows/s (data synthesis {data['t_data']:.1f} s, "
           f"not timed); {len(res.nuc.calls)} dyads, {len(res.nfrs)} NFRs; "
-          f"launches {launches}; occ spot-check positions "
+          f"launches {launches}, occ_window {k3.LAUNCHES}; occ spot-check positions "
           f"{res.occ_stage.n_spot_checked}; step programs: {progs.captures} captures, "
           f"{progs.replays} replays, pools {progs.pool_bytes / 1e6:.1f} MB")
     return {"prefix": prefix, "launches": launches, "steps": steps,
@@ -1127,6 +1218,7 @@ def phase_profiling(data: dict, run5: dict) -> dict:
             got = {k: stages.named_count(tr, f"{k}_kernel") for k in stages.KERNELS}
             want = ({"nuc_scores": 0, "diag_xcorr": 2 * n} if e.conv == "diag_pallas"
                     else {"nuc_scores": n * len(e.devices), "diag_xcorr": 0})
+            want["occ_window"] = n * len(e.devices)  # K3 on either route
             if got != want:
                 raise AssertionError(f"profiling {name}: the trace of {n} batches names "
                                      f"{got}, expected {want}")
@@ -2202,6 +2294,7 @@ def main() -> int:
     phase_k1()
     phase_k2()
     phase_ll()
+    phase_occ()
     with tempfile.TemporaryDirectory() as d:
         data = make_dataset(d)
         run5 = phase_run(data)

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nucleoatac_torch"
-SOURCES = ("diag_xcorr.cu", "nuc_scores.cu")
+SOURCES = ("diag_xcorr.cu", "nuc_scores.cu", "occ_window.cu")
 HEADERS = ("xcorr.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -98,6 +98,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nucleoatac_nuc_scores.restype = i32
     lib.nucleoatac_nuc_scores.argtypes = [
         p, i64, p, i64, p, p, p, p, p, i32, i32, i32, i32, ctypes.c_float, p,
+    ]
+    lib.nucleoatac_occ_window.restype = i32
+    lib.nucleoatac_occ_window.argtypes = [
+        p, i64, i64, i64, p, i64, p, i32, i32, i32, i32, i32, i32, ctypes.c_float,
+        ctypes.c_float, p,
     ]
     return lib
 

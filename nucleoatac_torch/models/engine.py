@@ -88,6 +88,7 @@ from nucleoatac_torch.models.params import (
 )
 from nucleoatac_torch.ops import diag_xcorr as k1_ops
 from nucleoatac_torch.ops import nuc_scores as k2_ops
+from nucleoatac_torch.ops import occ_window as k3_ops
 from nucleoatac_torch.ops.biasmat import bias_mat_batch
 from nucleoatac_torch.ops.diag_xcorr import nuc_conv_outputs
 from nucleoatac_torch.ops.nuc_scores import nuc_scores
@@ -298,7 +299,8 @@ class TorchEngine:
         self.steps = 0  # nuc batches dispatched, per shard (every _scores call)
         # the fused steps' CUDA graphs; a replay adds the counts its capture saw
         self.programs = StepPrograms(
-            [(k2_ops, "LAUNCHES"), (k1_ops, "LAUNCHES"), (self, "steps")])
+            [(k2_ops, "LAUNCHES"), (k1_ops, "LAUNCHES"), (k3_ops, "LAUNCHES"),
+             (self, "steps")])
 
     def smooth_margin(self) -> int:
         """Columns of norm needed on each side of the core to reproduce the

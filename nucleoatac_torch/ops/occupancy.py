@@ -9,13 +9,17 @@ difference, whose cancellation costs ~1e-2 absolute on LL ~1e2 in f32.
 Tie rules follow the reference: argmax takes the first index; the CI's
 last index is an argmax over the flipped surface. Three wire formats pack
 the picks: v1 (occupancy_packed, whole window), v2 (occupancy_packed3,
-core) and v8 (occupancy_packed2, core, CI bounds as deltas).
+core) and v8 (occupancy_packed2, core, CI bounds as deltas). On the card
+v8's window sums, picks and pack are one hand-written kernel, K3
+(ops/occ_window.py), after the SGEMM; every other route is torch ops.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from nucleoatac_torch.ops import occ_window
 
 
 class OccOut(NamedTuple):
@@ -51,9 +55,23 @@ def _ll_and_n(mat: torch.Tensor, log_mix: torch.Tensor, flank: int):
         proj = torch.einsum("bsw,sg->bgw", mat.double(), log_mix.double())
     else:
         proj = torch.einsum("bsw,sg->bgw", mat, log_mix)
-    ll = _sliding_sum(proj.double(), flank).to(mat.dtype).transpose(1, 2)
-    n = _sliding_sum(mat.sum(dim=1), flank)
-    return ll, n
+    return _window_sums(proj, mat.sum(dim=1), flank, mat.dtype)
+
+
+def projection_and_counts(mat: torch.Tensor, log_mix: torch.Tensor) -> torch.Tensor:
+    """[B, G + 1, W]: the LL projection and, in row G, the column counts,
+    from one float32 SGEMM of the table with a column of ones beside it
+    (the counts are integers, so their row is exact). The SGEMM reads mat
+    where it lies: ``einsum`` first copies it to [B, W, S]."""
+    table = torch.cat([log_mix, torch.ones_like(log_mix[:, :1])], dim=1)
+    return torch.matmul(table.T, mat)
+
+
+def _window_sums(proj: torch.Tensor, counts: torch.Tensor, flank: int, dtype):
+    """([B, W, G] window sums of the [B, G, W] projection, summed in float64
+    and rounded once to ``dtype``; [B, W] window sums of the counts)."""
+    ll = _sliding_sum(proj.double(), flank).to(dtype).transpose(1, 2)
+    return ll, _sliding_sum(counts, flank)
 
 
 def _picks(ll: torch.Tensor, ci_drop: float):
@@ -153,13 +171,57 @@ def occupancy_packed2(
     position's fifth delta bits, 2 bits per position (bit0 = lo_d bit 4,
     bit1 = up_d bit 4), 4 positions per byte, little-endian. A delta over
     31 or an empty window clears the certified flag and routes the
-    position through the host float64 refinisher (models/occ.py)."""
+    position through the host float64 refinisher (models/occ.py).
+
+    On the card one float32 SGEMM (``projection_and_counts``) is followed
+    by one launch of K3 (ops/occ_window.py), which does the rest; elsewhere
+    this is ``occupancy_packed2_plain``."""
+    if mat.device.type != "cuda":
+        return occupancy_packed2_plain(mat, log_mix, flank, core_lo, core_len,
+                                       ci_drop, exact_tol)
+    G = log_mix.shape[1]
+    proj = projection_and_counts(mat, log_mix)
+    return occ_window.occ_window(proj[:, :G], proj[:, G], flank, core_lo, core_len,
+                                 ci_drop, exact_tol)
+
+
+def occupancy_packed2_plain(
+    mat: torch.Tensor,
+    log_mix: torch.Tensor,
+    flank: int,
+    core_lo: int,
+    core_len: int,
+    ci_drop: float = 1.92,
+    exact_tol: float = 0.05,
+) -> torch.Tensor:
+    """occupancy_packed2 in torch ops, on any device: its CPU route, and on
+    the card the plain version K3 is held to."""
     G = log_mix.shape[1]
     if G > 128:
         raise ValueError(
             f"grid size {G} > 128 overflows the 7-bit packed grid index"
         )
     ll, n = _ll_and_n(mat, log_mix, flank)
+    return _pack_v8(ll, n, G, core_lo, core_len, ci_drop, exact_tol)
+
+
+def packed2_from_proj(
+    proj: torch.Tensor,  # [B, G, W] float32
+    counts: torch.Tensor,  # [B, W] float32
+    flank: int,
+    core_lo: int,
+    core_len: int,
+    ci_drop: float = 1.92,
+    exact_tol: float = 0.05,
+) -> torch.Tensor:
+    """K3's plain version, on K3's inputs: occupancy_packed2's bytes from
+    its float32 projection and column counts."""
+    ll, n = _window_sums(proj, counts, flank, proj.dtype)
+    return _pack_v8(ll, n, proj.shape[1], core_lo, core_len, ci_drop, exact_tol)
+
+
+def _pack_v8(ll, n, G, core_lo, core_len, ci_drop, exact_tol):
+    """Wire-v8 bytes from the [B, W, G] surface and the [B, W] counts."""
     ll = ll[:, core_lo : core_lo + core_len]
     n = n[:, core_lo : core_lo + core_len]
     best, first, last, _, margin, ci_margin = _picks(ll, ci_drop)
@@ -178,7 +240,7 @@ def occupancy_packed2(
     up_c = torch.clamp(up_d, max=31)
     ch1 = torch.where(empty, 0, (lo_c & 0xF) | ((up_c & 0xF) << 4))
     hi2 = torch.where(empty, 0, (lo_c >> 4) | ((up_c >> 4) << 1))
-    B = mat.shape[0]
+    B = ll.shape[0]
     pad = (-core_len) % 4
     if pad:
         hi2 = torch.nn.functional.pad(hi2, (0, pad))

@@ -85,14 +85,16 @@ import torch
 from nucleoatac_torch.device import resolve_device
 from nucleoatac_torch.ops import diag_xcorr as k1
 from nucleoatac_torch.ops import nuc_scores as k2
+from nucleoatac_torch.ops import occ_window as k3
 
 # published H100 SXM peaks (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+FP64_ADD_PER_S = 33.5e12 / 2  # the FP64 pipes' 33.5 TFLOP/s count an FMA as two
 
 WIRES = ("pool2", "delta")
-KERNELS = ("nuc_scores", "diag_xcorr")
+KERNELS = ("nuc_scores", "diag_xcorr", "occ_window")
 
 
 def smi() -> str:
@@ -134,6 +136,27 @@ def k2_work(B: int, S: int, W: int, K: int) -> tuple:
     Wo = W - K + 1
     return (2.0 * B * Wo * 4 * S * K, 2.0 * B * Wo * 4 * K + 2.0 * B * S * W,
             4.0 * (2 * B * S * W + 4 * K * S + 4 * K + 5 * B * W))
+
+
+def k3_bound(B: int, G: int, W: int, core_lo: int, core: int, flank: int,
+             run: int = 8) -> dict:
+    """The least time of one K3 launch: the projection's core and halo
+    columns and their counts read once and the wire-v8 bytes written once,
+    over HBM's rate, against K3's float64 adds on the FP64 pipes. K3 sums
+    runs of ``run`` positions of a grid row (G rows and the counts' row),
+    whose windows of 2*flank + 1 terms share all but run - 1 terms on each
+    side: the shared terms once, the others for their own positions, two
+    more per position to join them. ``direct_adds`` counts the same sums
+    window by window."""
+    span = 2 * flank + 1
+    per_run = run * (run - 1) + span - run + 1 + 2 * run if span >= run else run * span
+    cols = min(W, core_lo + core + flank) - max(0, core_lo - flank)
+    nbytes = 4.0 * B * (G + 1) * cols + B * (2 * core + -(-core // 4))
+    adds = float(B) * (G + 1) * -(-core // run) * per_run
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, adds / FP64_ADD_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "adds": adds, "direct_adds": float(B) * (G + 1) * core * span, "bytes": nbytes}
 
 
 def flop_model(cfg, width: int) -> dict:
@@ -243,11 +266,11 @@ class Row:
     tc_flops: float = 0.0
     fp32_flops: float = 0.0
     in_sum: bool = True
-    per_call: tuple = (0, 0)  # (K2, K1) launches per call on the card
+    per_call: tuple = (0, 0, 0)  # (K2, K1, K3) launches per call on the card
     note: str = ""
 
 
-def _row(name, fn, reads, tc=0.0, fp32=0.0, in_sum=True, per_call=(0, 0), note=""):
+def _row(name, fn, reads, tc=0.0, fp32=0.0, in_sum=True, per_call=(0, 0, 0), note=""):
     out = fn()
     return Row(name, fn, out, _nbytes(reads) + _nbytes(out), tc, fp32, in_sum,
                per_call, note)
@@ -289,7 +312,9 @@ def stage_rows(eng, batch: dict, wire: str = "pool2") -> list:
     occ = "_occ_packed2" if wire == "pool2" else "_occ_packed"
     rows.append(_row(occ, lambda: getattr(eng, occ)(mat), (mat, tab["log_mix"]),
                      fp32=B * (fm["occ_matmul"] + fm["occ_slide"]),
-                     note=f"LL einsum over {S} sizes, window sum, picks"))
+                     per_call=(0, 0, int(wire == "pool2")),
+                     note=f"LL SGEMM over {S} sizes, window sum, picks"
+                     + (" (K3)" if wire == "pool2" else "")))
     L = tab["pwm_log_ratio"].shape[1]
     if wire == "pool2":
         rows.append(_row("_logbias_2bit",
@@ -308,7 +333,7 @@ def stage_rows(eng, batch: dict, wire: str = "pool2") -> list:
     if eng.conv == "diag" or eng.use_pallas:
         tc, fp32, _ = k2_work(B, Sv, W, K)
         rows.append(_row("_xcorr", lambda: eng._xcorr(mat, b0), (fmat, b0, kernels),
-                         tc=tc, fp32=fp32, per_call=(1, 0),
+                         tc=tc, fp32=fp32, per_call=(1, 0, 0),
                          note="K2: the 8 footprint sums and the epilogue"))
     else:
         if eng.conv == "diag_pallas":
@@ -316,11 +341,11 @@ def stage_rows(eng, batch: dict, wire: str = "pool2") -> list:
             Wo = W - K + 1
             convs = _row("_convs", lambda: eng._convs(mat, b0), (fmat, b0, kernels),
                          tc=2 * tc1, fp32=2.0 * B * Wo * 4 * K + 2.0 * B * Sv * W,
-                         per_call=(0, 2), note="two K1 launches and the rank-1 sums")
+                         per_call=(0, 2, 0), note="two K1 launches and the rank-1 sums")
             rows.append(convs)
             for name, x, k2d in (("K1 F", fmat, f2d), ("K1 B0", b0, b2d)):
                 rows.append(_row(name, lambda x=x, k2d=k2d: k1.diag_xcorr(x, k2d),
-                                 (x, k2d), tc=tc1, in_sum=False, per_call=(0, 1),
+                                 (x, k2d), tc=tc1, in_sum=False, per_call=(0, 1, 0),
                                  note="one K1 launch alone (inside _convs)"))
         else:
             convs = _row("_convs", lambda: eng._convs(mat, b0),
@@ -372,7 +397,8 @@ def step_fn(eng, batch: dict, wire: str = "pool2", eager: bool = False):
 
 # ---------------- timing ---------------------------------------------------
 def _launches() -> Counter:
-    return Counter({"nuc_scores": k2.LAUNCHES, "diag_xcorr": k1.LAUNCHES})
+    return Counter({"nuc_scores": k2.LAUNCHES, "diag_xcorr": k1.LAUNCHES,
+                    "occ_window": k3.LAUNCHES})
 
 
 def _sync(dev: torch.device) -> None:
@@ -738,7 +764,9 @@ def profile_stages(eng, batch: dict, wire: str = "pool2", iters: int = 20,
         where = [(a != b).nonzero().tolist()[:8] for a, b in pairs]
         raise RuntimeError(f"profile: the composed {wire} stages differ from the step's "
                            f"bytes at (window, column) {where}")
-    steps_per_call = (shards, 0) if eng.conv == "diag" or eng.use_pallas else (0, 2 * shards)
+    k3 = shards if wire == "pool2" else 0  # wire v8 occ: one K3 launch per shard
+    steps_per_call = ((shards, 0, k3) if eng.conv == "diag" or eng.use_pallas
+                      else (0, 2 * shards, k3))
     calls = 1 + 3 * iters  # time_ms and enqueue_ms
     report_rows = {}
 

@@ -6,8 +6,9 @@ stand-in for the CUDA capture:
     emax, pool capacity, batch size, device or step name captures anew;
   * a replay copies its inputs into the static buffers and returns a copy
     of the static output;
-  * the counters: K2 launches and engine.steps advance once per batch,
-    warm-up or replay, and not for the capture; a failed capture raises
+  * the counters: K2 launches, K3 launches and engine.steps advance once
+    per batch, warm-up or replay, and not for the capture; a replay of
+    run_step_pool2 adds one K3 launch per shard; a failed capture raises
     and leaves them as they were;
   * a CPU engine creates no entry, and its four fused steps keep the JAX
     DeviceEngine's bytes on the seeded example (test_torch_forms' bars:
@@ -26,6 +27,7 @@ from nucleoatac_torch.entry import _tiny_engine
 from nucleoatac_torch.models import engine as tengine_mod
 from nucleoatac_torch.models.graphs import StepPrograms, signature
 from nucleoatac_torch.ops import nuc_scores as k2_ops
+from nucleoatac_torch.ops import occ_window as k3_ops
 from nucleoatac_torch.profiling import stages
 from test_torch_transfer import CFG, TOL, _engine, example  # noqa: F401 (a fixture)
 
@@ -111,24 +113,59 @@ def _count_k2_on_the_cpu(monkeypatch):
     monkeypatch.setattr(tengine_mod, "nuc_scores", counted)
 
 
+def _count_k3_on_the_cpu(monkeypatch):
+    """The engine's wire-v8 occ calls count a K3 launch on the CPU too, as
+    they do on the card."""
+    real = tengine_mod.occupancy_packed2
+
+    def counted(*a):
+        k3_ops.LAUNCHES += 1
+        return real(*a)
+
+    monkeypatch.setattr(tengine_mod, "occupancy_packed2", counted)
+
+
 def test_counts_advance_once_per_batch_and_not_for_the_capture(monkeypatch):
     """The warm-up counts as itself, the capture nothing, each replay the
-    counts its capture saw: K2 launches == engine.steps == batches."""
+    counts its capture saw: K2 launches == K3 launches == engine.steps ==
+    batches."""
     _count_k2_on_the_cpu(monkeypatch)
+    _count_k3_on_the_cpu(monkeypatch)
     _, eng = _tiny_engine(core=256, batch=2, device="cpu")
     progs = StepPrograms(eng.programs.counters, capture=StandIn())
     b = stages.synthetic_batch(eng, frags=128)
     args = [T(b[k]) for k in ("pool", "table", "packed2", "esc")] + [b["emax"]]
-    k0 = k2_ops.LAUNCHES
+    k0, j0 = k2_ops.LAUNCHES, k3_ops.LAUNCHES
     out = progs("run_step_pool2", eng._run_pool2, *args)
-    assert (k2_ops.LAUNCHES - k0, eng.steps, progs.captures) == (1, 1, 1)
+    assert (k2_ops.LAUNCHES - k0, k3_ops.LAUNCHES - j0, eng.steps, progs.captures) == (
+        1, 1, 1, 1)
     assert torch.equal(out, eng._run_pool2(*args))
-    assert (k2_ops.LAUNCHES - k0, eng.steps) == (2, 2)  # the eager call itself
+    assert (k2_ops.LAUNCHES - k0, k3_ops.LAUNCHES - j0, eng.steps) == (2, 2, 2)
     for n in (3, 4):
         progs("run_step_pool2", eng._run_pool2, *args)
-        assert (k2_ops.LAUNCHES - k0, eng.steps) == (n, n)
+        assert (k2_ops.LAUNCHES - k0, k3_ops.LAUNCHES - j0, eng.steps) == (n, n, n)
     (prog,) = progs.entries.values()
-    assert prog.counts == (1, 0, 1) and progs.replays == 2
+    assert prog.counts == (1, 0, 1, 1) and progs.replays == 2
+
+
+def test_a_replay_of_run_step_pool2_adds_one_k3_launch_per_shard(monkeypatch):
+    """Through the engine's StepPrograms counters: on two shards each
+    run_step_pool2 adds two K3 launches (one per shard), the capture none."""
+    _count_k3_on_the_cpu(monkeypatch)
+    _, eng = _tiny_engine(core=256, batch=4, device=["cpu", "cpu"])
+    progs = StepPrograms(eng.programs.counters, capture=StandIn())
+    monkeypatch.setattr(eng, "_program", lambda name, chain: (
+        lambda *a: progs(name, chain, *a)))
+    b = stages.synthetic_batch(eng, frags=128)
+    args = [T(b[k]) for k in ("pool", "table", "packed2", "esc")] + [b["emax"]]
+    j0 = k3_ops.LAUNCHES
+    first = eng.run_step_pool2(*args)  # shard 0 warms up and captures, shard 1 replays
+    assert (k3_ops.LAUNCHES - j0, progs.captures, progs.replays) == (2, 1, 1)
+    for n in (2, 3):
+        assert torch.equal(eng.run_step_pool2(*args), first)
+        assert (k3_ops.LAUNCHES - j0, progs.replays) == (2 * n, 2 * n - 1)
+    (prog,) = progs.entries.values()
+    assert prog.counts[[o for o, _ in progs.counters].index(k3_ops)] == 1
 
 
 def test_a_failed_capture_raises_and_leaves_the_counts(monkeypatch):

@@ -15,6 +15,8 @@ from nucleoatac_tpu.ops.pallas_kernels import nuc_scores_pallas
 from nucleoatac_tpu.ops.xcorr import build_kernels, conv_stack_diag
 from nucleoatac_torch.ops import diag_xcorr as k1
 from nucleoatac_torch.ops import nuc_scores as k2
+from nucleoatac_torch.ops import occ_window as k3
+from nucleoatac_torch.ops.occupancy import occupancy_packed2
 from nucleoatac_torch.ops.xcorr import build_kernels_diag
 
 VLO, VUP = 105, 251
@@ -119,10 +121,11 @@ def test_stacks_to_diag_is_exact_split():
 
 
 def test_cpu_wrappers_count_no_launches(rng):
-    """On CPU tensors the wrappers run the plain versions: no kernel
-    launch is counted."""
+    """On CPU tensors the wrappers run the plain versions, and
+    occupancy_packed2 (K3's caller) its torch route: no kernel launch is
+    counted."""
     x, k2d = _k1_inputs(rng)
-    before = (k1.LAUNCHES, k2.LAUNCHES)
+    before = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES)
     k1.diag_xcorr(torch.from_numpy(x), torch.from_numpy(k2d))
     fk, bk = build_kernels(VMat.default().mat)
     fmat, b0 = _nuc_inputs(rng, B=1, W=512, n=100)
@@ -130,7 +133,10 @@ def test_cpu_wrappers_count_no_launches(rng):
         torch.from_numpy(fmat), torch.from_numpy(b0),
         torch.from_numpy(fk), torch.from_numpy(bk),
     )
-    assert (k1.LAUNCHES, k2.LAUNCHES) == before
+    mat = torch.from_numpy(rng.poisson(0.05, size=(2, 30, 512)).astype(np.float32))
+    log_mix = torch.from_numpy(-rng.random((30, 101)).astype(np.float32))
+    occupancy_packed2(mat, log_mix, 60, 128, 256)
+    assert (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES) == before
 
 
 def _need_cuda():
