@@ -97,14 +97,6 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 peaks (every component group, the ten outputs, the fused
                 timers none negative). Each report is printed as a table
                 and a JSON line.
-  5f. bench   — the port's bench drivers (nucleoatac_torch/bench), cut in
-                repeats and sizes: the engine bench on delta12 and delta
-                (B = 128, F = 2,048, 24 batches, 2 repeats, --breakdown;
-                each wire's first timed batch against a CPU engine at
-                [forms]' bar) with bench.py's default 100-peak e2e run;
-                run_e2e on phase 5's files (byte-equal outputs); scaling at
-                n = 1, 2; config5 at 2 hosts x 1 sample x 200 peaks,
-                byte-identical to one host. K2 launches == batches run.
   5g. graphs  — the fused steps as step programs (models/graphs.py: one
                 CUDA graph per input signature, replayed; the reference's
                 jit executables): phase 5's run made at most 2 captures;
@@ -171,7 +163,7 @@ Phases (one line each; any failure raises and the script exits nonzero):
 Then one JSON line of kernel records (K2's launches from phase 5, K1's
 from phase 8, and each kernel's launches on every path that ran it,
 phase 5b's sharded runs, phase 5c's tracks, phase 5d's forms, phase
-5e's profiles, phase 5f's bench, phase 5g's graphs and phase 8b's wires
+5e's profiles, phase 5g's graphs and phase 8b's wires
 included) and as
 the last line {"ok": true, "device": {...}}.
 
@@ -1365,109 +1357,6 @@ def phase_profiling(data: dict, run5: dict) -> dict:
     return launches
 
 
-def phase_bench(data: dict, run5: dict) -> int:
-    """The port's bench drivers (nucleoatac_torch/bench) on the card, cut
-    in repeats and sizes: the engine bench on delta12 and on delta
-    (roofline.py's pipe row) at B = 128, F = 2,048, 24 batches, 2 repeats
-    (of 4), --breakdown, with the first timed batch of each wire held
-    against a CPU engine's unpack_run on the same bytes at [forms]' bar,
-    and bench.py's default e2e run (100 peaks) beside delta12; run_e2e on
-    phase 5's files (the ten outputs byte-equal to phase 5's); scaling at
-    n = 1 and 2 (two cards where visible, else two shards on the card,
-    virtual); config5 at 2 hosts x 1 sample (of 2) x 200 peaks (of
-    10,000) x 500 fragments, byte-identical to one host. K2 launches ==
-    the batches every driver ran in this process (config5's CLI processes
-    launch their own). Each bench module's JSON line is printed. Returns K2's
-    launches."""
-    import numpy as np
-    import torch
-
-    from nucleoatac_torch.bench import common, config5, e2e, engine, scaling
-    from nucleoatac_torch.config import RunConfig
-    from nucleoatac_torch.entry import _tiny_engine
-    from nucleoatac_torch.parallel.mesh import local_devices
-
-    t_phase = time.perf_counter()
-    reset_launches()
-    cpu = _tiny_engine(core=1024, batch=128, device="cpu")[1]
-    held, steps, msgs = {}, 0, []
-
-    def hold_first(eng, wire, mids, szs, nibs):
-        """The first timed batch through the loop on the card and on the CPU."""
-        got, want = [], []
-        engine.run_loop(eng, wire, mids[:1], szs[:1], nibs[:1], collect=got)
-        engine.run_loop(cpu, wire, mids[:1], szs[:1], nibs[:1], collect=want)
-        (gi, gc, gn, gq), (wi, wc, wn, wq) = got[0], want[0]
-        both = gc & wc
-        if both.mean() < 0.5 or not np.array_equal(gi.transpose(0, 2, 1)[both],
-                                                    wi.transpose(0, 2, 1)[both]):
-            raise AssertionError(f"bench {wire}: grid indices differ where both certify "
-                                 f"({both.mean():.3f} certified)")
-        err = np.abs(gn - wn)
-        if not (err <= eng.cfg.nuc.exact_tol + np.maximum(gq, wq)[:, None]).all():
-            raise AssertionError(f"bench {wire}: norm past exact_tol + one u16 step")
-        held[wire] = (float(both.mean()), float(err.max()))
-
-    with tempfile.TemporaryDirectory() as d:
-        rec = os.path.join(d, "atscale_torch.json")
-        lines = {}
-        for wire, peaks in (("delta12", "100"), ("delta", "0")):
-            args = engine.parser().parse_args(
-                ["--wire", wire, "--repeats", "2", "--breakdown", "--e2e-peaks", peaks,
-                 "--record", rec, "--device", CARD])
-            line = lines[wire] = engine.bench(args, hold=hold_first)
-            print(json.dumps(line), flush=True)
-            steps += line["steps"] + sum(line.get("e2e_steps", []))
-            msgs.append(f"{wire} {line['value']:.1f} w/s (repeats "
-                        f"{line['repeats_windows_per_s']}), vs_baseline "
-                        f"{line['vs_baseline']}, loop w/o encode "
-                        f"{line['breakdown_ms']['loop_without_encode_ms']:.2f} ms, encode "
-                        f"{line['breakdown_ms']['encode_ms']:.2f} ms, pinning "
-                        f"{line['breakdown_ms']['pin_ms']:.2f} ms per batch; first batch "
-                        f"{held[wire][0]:.3f} certified, max|norm - cpu| {held[wire][1]:.3e}; "
-                        f"{line['captures']} captures, graph pools "
-                        f"{line['graph_pool_bytes'] / 1e6:.1f} MB")
-        e = lines["delta12"]
-        msgs.append(f"e2e at {e['e2e_peaks']} peaks {e['e2e_windows_per_s']} w/s "
-                    f"({e['e2e_wall_s']} s)")
-
-        prefix = os.path.join(data["dir"], "bench_e2e")
-        line = e2e.run_e2e(data["bam"], data["bed"], data["fasta"], prefix, RunConfig(), CARD)
-        print(json.dumps(line), flush=True)
-        steps += line["steps"]
-        diff = config5.compare_outputs(run5["prefix"], prefix)
-        if diff or line["windows"] != run5["windows"]:
-            raise AssertionError(f"bench e2e: outputs differ from phase 5's: {diff}, "
-                                 f"windows {line['windows']} vs {run5['windows']}")
-        msgs.append(f"run_e2e {line['windows_per_s']:.1f} w/s ({line['wall_s']:.2f} s), "
-                    f"ingest {line['ingest_MBps']:.1f} MB/s")
-
-        two = torch.cuda.device_count() >= 2
-        devices_for = local_devices if two else (lambda n: [CARD] * n)
-        for line in scaling.scaling(devices_for, (1, 2), virtual=not two):
-            print(json.dumps(line), flush=True)
-            steps += line["steps"]
-            msgs.append(f"scaling n={line['devices']} {line['windows_per_s']:.1f} w/s "
-                        f"(efficiency {line['weak_scaling_efficiency']:.3f}, "
-                        f"virtual {line['virtual']})")
-
-        if config5.main(["--peaks", "200", "--frags-per-peak", "500", "--hosts", "2",
-                         "--samples", "1", "--workdir", d, "--timeout", "300",
-                         "--record", rec, "--device", CARD]) != 0:
-            raise AssertionError("bench config5: outputs differ from one host's")
-        rows = common.read_record(rec)
-        if [r["kind"] for r in rows] != ["config5"] or rows[0]["backend"] != "cuda":
-            raise AssertionError(f"bench: the run record holds {rows}")
-        msgs.append(f"config5 critical path {rows[0]['wall_s']:.1f} s, one host "
-                    f"{rows[0]['per_sample'][0]['single_host_s']:.1f} s")
-    launches = read_launches()
-    if launches != {"nuc_scores": steps, "diag_xcorr": 0}:
-        raise AssertionError(f"bench: launches {launches} for {steps} batches")
-    phase("bench", "; ".join(msgs) + f"; launches {launches} == batches run; phase "
-          f"{time.perf_counter() - t_phase:.1f} s; {smi()}")
-    return launches["nuc_scores"]
-
-
 def _same_bytes(what: str, replay, eager) -> None:
     """Raise, naming the first differing (window, column), unless a step
     program's replay printed the eager chain's bytes."""
@@ -2392,7 +2281,6 @@ def main() -> int:
         tracks = phase_tracks(data, run5)
         forms = phase_forms(data, run5)
         profiling = phase_profiling(data, run5)
-        bench = phase_bench(data, run5)
         graphs = phase_graphs(data, run5)
         phase_parity()
         stages_k2 = phase_stages(data, run5)
@@ -2416,7 +2304,7 @@ def main() -> int:
                        "tracks_dryrun": tracks["nuc_scores_dryrun"],
                        "forms": forms["nuc_scores"], "stages": stages_k2,
                        "hosts": hosts["nuc_scores"], "nonexact": nonexact["nuc_scores"],
-                       "profile": profiling["nuc_scores"], "bench": bench,
+                       "profile": profiling["nuc_scores"],
                        "graphs": graphs["nuc_scores"],
                        **wires["nuc_scores"]},
         "diag_xcorr": {"conv": k1_launches, "devices_diag_pallas": devices["diag_xcorr"],

@@ -2,9 +2,7 @@
 
 Every function here implements DESIGN.md formulas in plain numpy float64
 with obvious loops/vectorization. Device ops in ``nucleoatac_torch.ops`` are
-tested against these (SURVEY.md §5: the rebuild's test pyramid layer (a)),
-and the mirror also serves as the measured CPU baseline for bench.py
-(BASELINE.md: the CPU number must be measured, not quoted).
+tested against these (SURVEY.md §5: the rebuild's test pyramid layer (a)).
 """
 from nucleoatac_torch.mirror.windows import (
     bias_mat,

@@ -14,19 +14,20 @@ On a card B0 is one launch of K4 (ops/biasmat.py :: bias_mat) on every
 route.
 
 The fused steps (run_step_pool*, run_step_delta*) pack both branches into
-one uint8 row per window. The two-pass stages (models/occ.py,
-models/nuc.py) compose one branch each from the same stage functions: a
-wire's raster, then _occ_packed2 (wire v8) or _nucm16 (u16 norm) in exact
-mode, so both paths quantize the same f32 norm. Non-exact mode (occ.exact /
-nuc.exact False) has no host refinisher: _occ_packed3 ships full CI
-indices and _nuc5 the f32 signal, lr and fuzz tracks the host selection
-reads.
+one uint8 row per window. The reference's named download steps
+(occ_step_<wire>_<form>, nuc_step_<wire>[_seq]_<form>) are built from
+tables: the wires' rasters and sequence-bias stages (_WIRES, _SEQ_BIAS)
+and each download form's finisher (_OCC_FORMS, _NUC_FORMS). Each name is a
+class attribute with the reference's arguments in the reference's order.
 
-The reference's named download steps (occ_step_<wire>_<form>,
-nuc_step_<wire>[_seq]_<form>) are built from tables: the wires' rasters
-and sequence-bias stages (_WIRES, _SEQ_BIAS) and each download form's
-finisher (_OCC_FORMS, _NUC_FORMS). Each name is a class attribute with the
-reference's arguments in the reference's order.
+The two-pass stages (models/occ.py, models/nuc.py) dispatch through these
+steps, as the reference's stages do: occ_step_<wire>_p2 (wire v8) and
+nuc_step_<wire>[_seq]_m16 (u16 norm) in exact mode, from the same stage
+functions as the fused steps, so both paths quantize the same f32 norm.
+Non-exact mode (occ.exact / nuc.exact False) has no host refinisher:
+occ_step_<wire>_c3 ships full CI indices and nuc_step_<wire>[_seq]_c the
+f32 signal, lr and fuzz tracks the host selection reads. A new wire or
+download form is a change to this module's tables alone.
 
 The float-track steps (occ_step*, nuc_step*, full_step*) are the
 reference's public step API: OccTracks / NucTracks of [B, W] tensors from

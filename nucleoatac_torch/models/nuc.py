@@ -31,7 +31,7 @@ from nucleoatac_torch.models.data import (
     tile_chunks,
 )
 from nucleoatac_torch.utils.numerics import greedy_select_fast, local_max_candidates_fast
-from nucleoatac_torch.models.occ import _pipelined, stage_wire, wire_batches
+from nucleoatac_torch.models.occ import _pipelined, stage_wire, wire_arrays, wire_batches
 from nucleoatac_torch.utils.trace import span
 
 
@@ -367,43 +367,31 @@ class NucStage:
 
     def _batches(self, frags: BamFragments, tiles, seq_rows, log_bias_rows):
         """(batches, dispatch) of ``run`` on the stages' wire
-        (occ.stage_wire), as the reference's NucStage.run picks them. Exact
-        mode downloads the u16 norm with smooth margins (wire v5), non-exact
-        mode the f32 [B, 5, W] tracks. ``seq_rows(metas)`` gives the uint8
-        sequence-code rows, ``log_bias_rows(batch)`` the f32 log-bias rows.
-        A precomputed bias track forces the log-bias upload (the on-device
-        PWM would recompute bias from sequence); so do the frags and dense
-        wires."""
+        (occ.stage_wire): the engine's named step
+        nuc_step_<wire>[_seq]_<m16|c>, as the reference's NucStage.run picks
+        it. Exact mode downloads the u16 norm with smooth margins (wire v5),
+        non-exact mode the f32 [B, 5, W] tracks. ``seq_rows(metas)`` gives
+        the uint8 sequence-code rows, ``log_bias_rows(batch)`` the f32
+        log-bias rows. The _seq steps (the wires the engine has them for)
+        take sequence codes for the on-device PWM: nibble-packed, or plain
+        uint8 on the packed wire. A precomputed bias track forces the
+        log-bias upload (the on-device PWM would recompute bias from
+        sequence)."""
         cfg, eng = self.cfg, self.engine
-        finish = eng._nucm16 if cfg.nuc.exact else eng._nuc5
-
         wire = stage_wire(cfg)
-        # (raster stage, the batch's host arrays it uploads)
-        raster, frag_arrays = {
-            "delta12": (eng._raster_delta12, lambda b: (b.buf,)),
-            "delta": (eng._raster_delta, lambda b: (b.delta,)),
-            "packed": (eng._raster_packed, lambda b: (b.packed,)),
-            "frags": (eng._raster_frags, lambda b: (b.mids, b.sizes, b.valid)),
-            "dense": (eng._dense, lambda b: (b.mats,)),
-        }[wire]
-        # (log-bias stage, its upload): nibble codes on the delta wires,
-        # plain uint8 codes on packed, else the f32 log-bias rows
-        bias, bias_array = {
-            "delta12": (eng._logbias_nib, lambda b: pack_nibble_codes(seq_rows(b.meta))),
-            "delta": (eng._logbias_nib, lambda b: pack_nibble_codes(seq_rows(b.meta))),
-            "packed": (eng._logbias_seq, lambda b: seq_rows(b.meta)),
-        }.get(wire, (None, log_bias_rows))
-        if eng.pwm is None or self.bias_source is not None:
-            bias, bias_array = None, log_bias_rows
+        form = "m16" if cfg.nuc.exact else "c"
+        seq = (eng.pwm is not None and self.bias_source is None
+               and hasattr(eng, f"nuc_step_{wire}_seq_{form}"))
+        step = getattr(eng, f"nuc_step_{wire}{'_seq' if seq else ''}_{form}")
+
+        def bias_array(b):
+            if not seq:
+                return log_bias_rows(b)
+            codes = seq_rows(b.meta)
+            return codes if wire == "packed" else pack_nibble_codes(codes)
 
         def dispatch(b):
-            arrays = frag_arrays(b)
-
-            def chain(*a):
-                log_bias = a[-1] if bias is None else bias(a[-1])
-                return finish(raster(*a[:-1]), log_bias)
-
-            return eng.shard(chain, *arrays, bias_array(b))
+            return step(*wire_arrays(wire, b), bias_array(b))
 
         return wire_batches(cfg, wire, frags, tiles, eng.width), dispatch
 

@@ -70,6 +70,15 @@ def wire_batches(cfg: RunConfig, wire: str, frags: BamFragments, tiles, width: i
         frags, tiles, width, B)
 
 
+def wire_arrays(wire: str, b) -> tuple:
+    """The host arrays of a ``wire`` batch, in the order of the engine's
+    named steps' arguments."""
+    if wire == "frags":
+        return b.mids, b.sizes, b.valid
+    return (getattr(b, {"delta12": "buf", "delta": "delta", "packed": "packed",
+                        "dense": "mats"}[wire]),)
+
+
 @dataclass
 class OccStageResult:
     mix: FragmentMixDistribution
@@ -257,29 +266,22 @@ class OccStage:
 
     def _batches(self, frags: BamFragments, tiles):
         """(batches, dispatch) of ``run`` on the stages' wire
-        (``stage_wire``), as the reference's OccStage.run picks them. The
-        frags wire packs its lists into ``(size << 16) | mid`` words on the
-        host."""
+        (``stage_wire``): the engine's named step occ_step[_<wire>]_<p2|c3>,
+        as the reference's OccStage.run picks it. The frags wire packs its
+        lists into ``(size << 16) | mid`` words on the host and takes the
+        packed wire's step."""
         cfg, eng = self.cfg, self.engine
-        finish = eng._occ_packed2 if cfg.occ.exact else eng._occ_packed3
-
-        def frags_words(b):
-            s = np.where(b.valid, b.sizes, 0).astype(np.int32)
-            m = np.where(b.valid, b.mids, 0).astype(np.int32)
-            return (s << 16) | m
-
         wire = stage_wire(cfg)
-        # (raster stage, the batch's host array it uploads)
-        raster, host = {
-            "delta12": (eng._raster_delta12, lambda b: b.buf),
-            "delta": (eng._raster_delta, lambda b: b.delta),
-            "packed": (eng._raster_packed, lambda b: b.packed),
-            "frags": (eng._raster_packed, frags_words),
-            "dense": (eng._dense, lambda b: b.mats),  # int16
-        }[wire]
+        form = "p2" if cfg.occ.exact else "c3"
+        step = getattr(eng, f"occ_step_{form}" if wire == "dense" else
+                       f"occ_step_{'packed' if wire == 'frags' else wire}_{form}")
 
         def dispatch(b):
-            return eng.shard(lambda a: finish(raster(a)), host(b))
+            if wire == "frags":
+                s = np.where(b.valid, b.sizes, 0).astype(np.int32)
+                m = np.where(b.valid, b.mids, 0).astype(np.int32)
+                return step((s << 16) | m)
+            return step(*wire_arrays(wire, b))
 
         return wire_batches(cfg, wire, frags, tiles, eng.width), dispatch
 

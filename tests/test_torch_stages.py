@@ -1,7 +1,9 @@
 """The port's standalone stages and two-pass path against the JAX package
 (CPU backend): the delta12 wire, the engine's delta12 entry points, the
-xcorr route switch (cfg.window.conv), and whole runs — two-pass equal to
+named step each two-pass stage dispatches per wire and mode, the xcorr
+route switch (cfg.window.conv), and whole runs — two-pass equal to
 fused row for row, and to the reference's run by parity.compare_runs."""
+import dataclasses
 import gzip
 
 import numpy as np
@@ -34,6 +36,7 @@ from nucleoatac_torch.models.nuc import SeqCodesProvider
 from nucleoatac_torch.ops import rasterize as tras
 from nucleoatac_torch.parity import (
     EXACT_SUFFIXES,
+    NONEXACT_STAT_TOL,
     NUCPOS_SUFFIXES,
     RUN_SUFFIXES,
     SIGNAL_SUFFIXES,
@@ -204,6 +207,133 @@ def test_two_pass_and_fused_programs_give_equal_bytes(engines, batches):
         fused = teng.run_step_pool(T(b.pool), T(b.table), T(nib), b.emax)
         assert torch.equal(fused[:, :n_occ], teng.occ_step_delta12_p2(T(a.buf)))
         assert torch.equal(fused[:, n_occ:], teng.nuc_step_delta12_seq_m16(T(a.buf), T(nib)))
+
+
+# ---------------- the two-pass stages' named steps -----------------------
+def _frag_words(b):
+    s = np.where(b.valid, b.sizes, 0).astype(np.int32)
+    m = np.where(b.valid, b.mids, 0).astype(np.int32)
+    return (s << 16) | m
+
+
+# The reference stages' picks (nucleoatac_tpu/models/occ.py and nuc.py,
+# OccStage.run and NucStage.run): wire -> (the occ step's stem, its
+# arrays), (the nuc step's stem, its fragment arrays).
+REF_OCC = {"delta12": ("occ_step_delta12", lambda b: (b.buf,)),
+           "delta": ("occ_step_delta", lambda b: (b.delta,)),
+           "packed": ("occ_step_packed", lambda b: (b.packed,)),
+           "frags": ("occ_step_packed", lambda b: (_frag_words(b),)),
+           "dense": ("occ_step", lambda b: (b.mats,))}
+REF_NUC = {"delta12": ("nuc_step_delta12", lambda b: (b.buf,)),
+           "delta": ("nuc_step_delta", lambda b: (b.delta,)),
+           "packed": ("nuc_step_packed", lambda b: (b.packed,)),
+           "frags": ("nuc_step_frags", lambda b: (b.mids, b.sizes, b.valid)),
+           "dense": ("nuc_step_dense", lambda b: (b.mats,))}
+# non-exact mode's score bars by [B, 5, W] channel (tests/test_torch_nonexact.py)
+NONEXACT_TOL = {2: NONEXACT_STAT_TOL[9], 3: NONEXACT_STAT_TOL[7], 4: NONEXACT_STAT_TOL[10]}
+STAGE_WIRES = tuple(REF_OCC)
+
+
+@pytest.fixture(scope="module")
+def port_tiles(example):
+    """The port's own fragments and tiles of the example."""
+    from nucleoatac_torch.models.data import tile_chunks as ttile_chunks
+
+    ex, _, _, _, tchunks, _ = example
+    return (tscan_bam(ex["bam"], TCFG.ingest),
+            ttile_chunks(tchunks, TCFG.window, TCFG.occ, TCFG.vmat))
+
+
+def _stage_cfg(wire, exact):
+    return dataclasses.replace(
+        TCFG, window=dataclasses.replace(TCFG.window, transfer=wire),
+        occ=dataclasses.replace(TCFG.occ, exact=exact),
+        nuc=dataclasses.replace(TCFG.nuc, exact=exact))
+
+
+def _occ_close(teng, jeng, traw, jraw, exact):
+    """Grid indices equal wherever both engines certify."""
+    assert traw.shape == jraw.shape and traw.dtype == np.uint8
+    if exact:  # wire v8
+        (tidx, tcert), (jidx, jcert) = teng.decode_occ2(traw), jeng.decode_occ2(jraw)
+        both, floor = tcert & jcert, 0.5
+    else:  # wire v2
+        tidx, jidx = traw & 0x7F, jraw & 0x7F
+        both, floor = (traw[:, 0] >> 7).astype(bool) & (jraw[:, 0] >> 7).astype(bool), 0.9
+    assert both.mean() > floor
+    for c in range(3):
+        np.testing.assert_array_equal(tidx[:, c][both], jidx[:, c][both])
+
+
+def _nuc5_close(got, want):
+    """norm and norm_smooth within nuc.exact_tol, signal, lr and fuzz at
+    the JAX package's bars."""
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.abs(got[:, :2] - want[:, :2]).max() <= CFG.nuc.exact_tol
+    for c, (rtol, atol) in NONEXACT_TOL.items():
+        np.testing.assert_allclose(got[:, c], want[:, c], rtol=rtol, atol=atol)
+    assert np.abs(want[:, 0]).max() > 1.0  # non-vacuous
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "nonexact"])
+@pytest.mark.parametrize("stage,wire", [
+    *[("occ", w) for w in STAGE_WIRES],
+    *[("nuc", w) for w in STAGE_WIRES],
+    *[("nuc_bias_track", w) for w in ("delta12", "delta", "packed")],
+])
+def test_two_pass_stage_dispatch_matches_the_reference_step(
+        example, engines, bias_engines, port_tiles, stage, wire, exact):
+    """The first batch of OccStage._batches / NucStage._batches, dispatched
+    on the CPU engine, against the JAX engine's named step that the
+    reference's stage picks for the wire and mode, on the same host
+    arrays. "nuc_bias_track" is the --bias_track form: engines without a
+    PWM, f32 log-bias rows."""
+    from nucleoatac_torch.models.nuc import NucStage
+    from nucleoatac_torch.models.occ import OccStage
+
+    ex, _, _, _, tchunks, _ = example
+    tfrags, ttiles = port_tiles
+    jeng, teng = bias_engines if stage == "nuc_bias_track" else engines
+    cfg = _stage_cfg(wire, exact)
+    if stage == "occ":
+        batches, dispatch = OccStage(cfg, teng)._batches(tfrags, ttiles)
+        b = next(iter(batches))
+        stem, arrays = REF_OCC[wire]
+        want = getattr(jeng, stem + ("_p2" if exact else "_c3"))(
+            *map(jnp.asarray, arrays(b)))
+        _occ_close(teng, jeng, dispatch(b).numpy(), np.asarray(want), exact)
+        return
+
+    fasta = TFastaFile(ex["fasta"])
+    seen = {}
+
+    def seq_rows(metas):
+        seen["codes"] = SeqCodesProvider(fasta, tchunks, teng, TCFG.window.batch).rows(metas)
+        return seen["codes"]
+
+    def log_bias_rows(batch):
+        rng = np.random.default_rng(7)
+        seen["logb"] = rng.normal(0, 0.3, (TCFG.window.batch, teng.width)).astype(np.float32)
+        return seen["logb"]
+
+    nstage = NucStage(cfg, teng, TPWM.default(), fasta)
+    batches, dispatch = nstage._batches(tfrags, ttiles, seq_rows, log_bias_rows)
+    b = next(iter(batches))
+    got = dispatch(b).numpy()
+    stem, arrays = REF_NUC[wire]
+    seq = jeng.pwm is not None and wire in ("delta12", "delta", "packed")
+    if seq:
+        # nibble-packed codes on the delta wires, plain ones on packed
+        last = seen["codes"] if wire == "packed" else pack_nibble_codes(seen["codes"])
+    else:
+        last = seen["logb"]
+    step = getattr(jeng, stem + ("_seq" if seq else "") + ("_m16" if exact else "_c"))
+    want = np.asarray(step(*map(jnp.asarray, arrays(b)), jnp.asarray(last)))
+    assert set(seen) == {"codes" if seq else "logb"}
+    if exact:
+        _decoded_close(jeng, teng, want, got)
+    else:
+        _nuc5_close(got, want)
 
 
 # ---------------- the xcorr route switch (cfg.window.conv) ----------------
