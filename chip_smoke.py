@@ -12,7 +12,9 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 bound (three TF32 tensor-core products per term) and the
                 card's name and power limit. A 401-tap template against
                 the plain version; a 673-tap one (past the shared memory)
-                must raise.
+                must raise. Where a `git archive` of the parent commit is
+                unpacked under build/parent, its K1 is built beside this
+                one, must give the same bits, and is timed in turns.
   4. K2       — nuc_scores kernel vs its plain version and a float64
                 evaluation at production shape: max |norm - f64| within
                 NucParams.exact_tol; against the plain version norm within
@@ -21,7 +23,14 @@ Phases (one line each; any failure raises and the script exits nonzero):
                 at 10, 40 and 100 times the fragments per window, and the
                 plain bars with templates zero-padded to 401 taps. Timed
                 like K1; its yardstick is one grouped cuDNN conv1d over
-                [F; B0], which computes the four 2-D sums only.
+                [F; B0], which computes the four 2-D sums only. The F
+                slabs each launch took on the list and the band products
+                (the slab counters), at the base batch and each coverage,
+                with K2's time beside the parent's K2 (build/parent, as
+                K1); then the density sweep that sets the crossover
+                (kSparseMax): two variants of this K2, every slab on the
+                list and every slab on the band products, and the build's
+                own, timed in turns at 14 densities of F.
   4b. LL      — occupancy log-likelihood vs float64 at production shape
                 (max |LL - f64| must stay within OccParams.exact_tol).
   4c. OCC     — K3 (occ_window: the f64 window sums, picks and wire-v8
@@ -43,8 +52,11 @@ Phases (one line each; any failure raises and the script exits nonzero):
   5. run      — nucleoatac_torch run_pipeline on the card with the default
                 RunConfig on synthetic data (1,000 peaks); K2 launches ==
                 K3 launches == K4 launches == nuc batches (each replay of a fused step's
-                CUDA graph counts the launches its capture recorded). Every fused
-                step of every later phase replays its graph.
+                CUDA graph counts the launches its capture recorded); the
+                run's loop record reads K2's slab counters, which the
+                replays add to on the card: sparse + dense == every slab
+                of every batch. Every fused step of every later phase
+                replays its graph.
   5b. devices — the one-process multi-device run: run_pipeline with the
                 default RunConfig on phase 5's dataset, each batch of 64
                 windows sharded over every visible card ("cuda"), or over
@@ -289,6 +301,13 @@ def phase_k1() -> None:
         times["library_ms"].append(cuda_ms(lambda: F.conv1d(x, wconv), iters=20))
     t = {k: min(v) for k, v in times.items()}
     bd = bound(*k1_work(B, S, W, K, C))
+    parent = _parent_lib()
+    if parent is not None:
+        pout = torch.empty_like(got)
+        hold("parent K1 vs this K1", _lib_k1(parent, x, k2d, pout), got, 0.0, 0.0)
+        side = _beside_parent(lambda: k1.diag_xcorr(x, k2d),
+                              lambda: _lib_k1(parent, x, k2d, pout))
+        phase("K1", f"beside the parent's kernel: {side}")
     wide = _k1_wide(dev)
     phase("K1", f"diag_xcorr [64,146,1536]x[2,147,146]: max|k-plain| "
           f"{err_plain:.3e}, max|k-f64| {err64:.3e} (rel {rel64:.2e}); "
@@ -464,7 +483,21 @@ def phase_k2() -> None:
     t = {k: min(v) for k, v in times.items()}
     S = fmat.shape[1]
     bd = bound(*k2_work(B, S, W, K))
-    cover = _k2_coverage(dev, cfg, q, tabs)
+    parent = _parent_lib()
+    buf = torch.empty_like(got)
+    if parent is not None and not torch.equal(
+            _lib_k2(parent, fmat, b0, tabs, vf, buf)[:, 4], got[:, 4]):
+        raise AssertionError("the parent's K2 gives other fragment counts n")
+    base = {"slabs": _slabs_of(dev, lambda: k2.nuc_scores(fmat, b0, *tabs, vf)),
+            **_beside_parent(lambda: k2.nuc_scores(fmat, b0, *tabs, vf),
+                             parent and (lambda: _lib_k2(parent, fmat, b0, tabs, vf, buf)))}
+    cover = _k2_coverage(dev, cfg, q, tabs, parent)
+    phase("K2", f"F slabs (sparse, dense) and ms beside the parent's kernel "
+          f"({'present' if parent else 'absent'}): [K2] batch {base}; "
+          f"by fragments per window {cover}")
+    sweep = _k2_sweep(dev, b0, tabs, vf)
+    phase("K2", f"crossover sweep (kSparseMax {sweep['kSparseMax']}; the two routes "
+          f"meet at {sweep['crossover_cells']} cells per slab): {json.dumps(sweep['rows'])}")
     wide = _k2_wide(dev, fmat[:4], b0[:4], tabs, vf, bars)
     fmt = lambda e: ", ".join(f"{c} {v:.3e}" for c, v in e.items())  # noqa: E731
     phase("K2", f"nuc_scores [64,146,1536]: max|k-f64| {fmt(err)} (norm bar "
@@ -488,15 +521,184 @@ def phase_k2() -> None:
         "share_of_bound": bd["bound_ms"] / t["ms"], "bound_rate": bd["bound_rate"],
         "fp32_pipe_bound_ms": bd["fp32_pipe_bound_ms"], "flops": bd["flops"],
         "bytes": bd["bytes"], "norm_err_by_coverage": cover,
+        "slabs_and_parent": base, "crossover_sweep": sweep,
     })
 
 
-def _k2_coverage(dev, cfg, q, tabs) -> dict:
+# a `git archive` of the parent commit, unpacked here before the call: its
+# K1 and K2 are timed beside this tree's in [K1] and [K2] where present
+PARENT = os.path.join(ROOT, "build", "parent")
+
+
+def _kernel_lib(csrc: str, tag: str, subs: tuple = ()):
+    """K1 and K2 of the csrc directory ``csrc`` (diag_xcorr.cu,
+    nuc_scores.cu and xcorr.cuh, with the text substitutions ``subs``
+    made) built with the port's nvcc flags into one library under
+    build/variants/<tag>; returns (ctypes library, whether K2 takes the
+    slab counters)."""
+    import ctypes
+    import shutil
+
+    from nucleoatac_torch.kernels import build
+
+    out = os.path.join(ROOT, "build", "variants", tag)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    texts = {}
+    for name in ("diag_xcorr.cu", "nuc_scores.cu", "xcorr.cuh"):
+        text = open(os.path.join(csrc, name)).read()
+        for old, new in subs:
+            if old in text:
+                text = text.replace(old, new)
+        texts[name] = text
+        with open(os.path.join(out, name), "w") as f:
+            f.write(text)
+    lib = os.path.join(out, "lib.so")
+    done = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", lib,
+                           os.path.join(out, "diag_xcorr.cu"),
+                           os.path.join(out, "nuc_scores.cu")],
+                          check=True, capture_output=True, text=True)
+    spills = [ln.strip() for ln in done.stderr.splitlines()
+              if "bytes spill" in ln or ("ptxas info" in ln and "Used" in ln)]
+    phase("build", f"{tag}: {spills}")
+    slabs = "unsigned long long* slabs" in texts["nuc_scores.cu"]
+    so = ctypes.CDLL(lib)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    so.nucleoatac_nuc_scores.restype = i32
+    so.nucleoatac_nuc_scores.argtypes = (
+        [p, i64, p, i64, p, p, p, p, p] + ([p] if slabs else [])
+        + [i32, i32, i32, i32, ctypes.c_float, p])
+    so.nucleoatac_diag_xcorr.restype = i32
+    so.nucleoatac_diag_xcorr.argtypes = [p, i64, p, p, i32, i32, i32, i32, p]
+    return so, slabs
+
+
+def _parent_lib():
+    """The parent's kernels (``PARENT``), built once, or None where it is
+    absent."""
+    csrc = os.path.join(PARENT, "nucleoatac_torch", "csrc")
+    if "parent" not in _LIBS:
+        _LIBS["parent"] = _kernel_lib(csrc, "parent") if os.path.isdir(csrc) else None
+    return _LIBS["parent"]
+
+
+_LIBS: dict = {}
+
+
+def _lib_k2(lib, fmat, b0, tabs, vf, out):
+    """One launch of the K2 of ``lib`` (from _kernel_lib) into out."""
+    import torch
+
+    so, slabs = lib
+    B, S, W = fmat.shape
+    args = [fmat.data_ptr(), fmat.stride(0), b0.data_ptr(), b0.stride(0),
+            *[t.data_ptr() for t in tabs], out.data_ptr()]
+    rc = so.nucleoatac_nuc_scores(
+        *args, *([None] if slabs else []), B, S, W, tabs[0].shape[1], float(vf),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 of a built variant: CUDA error {rc}")
+    return out
+
+
+def _lib_k1(lib, x, k2d, out):
+    import torch
+
+    so, _ = lib
+    B, S, W = x.shape
+    rc = so.nucleoatac_diag_xcorr(x.data_ptr(), x.stride(0), k2d.data_ptr(),
+                                  out.data_ptr(), B, S, W, k2d.shape[1],
+                                  torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 of a built variant: CUDA error {rc}")
+    return out
+
+
+def _beside_parent(fn, parent_fn, iters: int = 20) -> dict:
+    """ms of fn and parent_fn in turns (least of three means of ``iters``);
+    the parent's entry is None without a parent."""
+    times = {"ms": [], "parent_ms": []}
+    for _ in range(3):
+        times["ms"].append(cuda_ms(fn, iters=iters))
+        if parent_fn is not None:
+            times["parent_ms"].append(cuda_ms(parent_fn, iters=iters))
+    return {k: (min(v) if v else None) for k, v in times.items()}
+
+
+def _slabs_of(dev, fn) -> tuple:
+    """(sparse, dense) F slabs of K2's launches inside fn()."""
+    from nucleoatac_torch.ops import nuc_scores as k2
+
+    a = k2.slab_counts(dev)
+    fn()
+    b = k2.slab_counts(dev)
+    return (b[0] - a[0], b[1] - a[1])
+
+
+def _k2_sweep(dev, b0, tabs, vf) -> dict:
+    """The density sweep that sets K2's crossover (kSparseMax): F [64, 146,
+    1536] with each cell 1 with probability d (a full slab of 8 x 352
+    staged cells holds about 2,816 d of them) on the [K2] batch's B0; in
+    turns, two variants of this tree's K2 built with kSparseMax a whole
+    slab (every slab takes the list) and 0 (every nonempty slab takes the
+    band products), and the build's own kernel. The crossover is where the
+    two variants' times meet, in nonzero cells per slab. The parent's
+    kernel is timed beside them where present."""
+    import re as _re
+
+    import torch
+
+    src = os.path.join(ROOT, "nucleoatac_torch", "csrc")
+    cur = int(_re.search(r"constexpr int kSparseMax = (\d+);",
+                         open(os.path.join(src, "nuc_scores.cu")).read())[1])
+    sub = lambda n: ((f"constexpr int kSparseMax = {cur};",  # noqa: E731
+                      f"constexpr int kSparseMax = {n};"),)
+    # the list variant's slab list takes 8 x 200 entries; past 200 nonzero
+    # cells per slab (density 0.071) it takes the band products too
+    libs = {"list": _kernel_lib(src, "all_list", sub(200)),
+            "bands": _kernel_lib(src, "all_bands", sub(0))}
+    parent = _parent_lib()
+    if parent is not None:
+        libs["parent"] = parent
+    from nucleoatac_torch.ops import nuc_scores as k2
+
+    B, S, W = b0.shape
+    out = torch.empty((B, 5, W), device=dev)
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(7)
+    for d in (0.0005, 0.002, 0.004, 0.008, 0.012, 0.016, 0.02, 0.025, 0.03, 0.04,
+              0.05, 0.06, 0.1, 0.25):
+        fmat = (torch.rand((B, S, W), device=dev, generator=g) < d).float()
+        ref = k2.nuc_scores(fmat, b0, *tabs, vf)
+        for name, lib in libs.items():  # both routes give the build's n bits
+            if not torch.equal(_lib_k2(lib, fmat, b0, tabs, vf, out)[:, 4], ref[:, 4]):
+                raise AssertionError(f"K2 variant {name} at density {d}: n differs")
+        t = {k: [] for k in (*libs, "build")}
+        for _ in range(3):
+            for name, lib in libs.items():
+                t[name].append(cuda_ms(lambda lib=lib: _lib_k2(lib, fmat, b0, tabs, vf, out),
+                                       iters=10))
+            t["build"].append(cuda_ms(lambda: k2.nuc_scores(fmat, b0, *tabs, vf), iters=10))
+        rows.append({"density": d, "cells_per_slab": round(d * 8 * 352, 1),
+                     **{f"{k}_ms": round(min(v), 5) for k, v in t.items()},
+                     "slabs": _slabs_of(dev, lambda: k2.nuc_scores(fmat, b0, *tabs, vf))})
+    cross = None
+    for a, b in zip(rows, rows[1:]):
+        da, db = a["list_ms"] - a["bands_ms"], b["list_ms"] - b["bands_ms"]
+        if da <= 0 < db:
+            cross = a["cells_per_slab"] + (b["cells_per_slab"] - a["cells_per_slab"]) * (
+                -da / (db - da))
+            break
+    return {"rows": rows, "crossover_cells": cross, "kSparseMax": cur}
+
+
+def _k2_coverage(dev, cfg, q, tabs, parent=None) -> dict:
     """K2's max |norm - f64| on production batches of 10, 40 and 100 times
     the fragments of the [K2] batch (up to ~22,000 fragments in one
     footprint): the tile's error grows with the counts, and each must stay
     within nuc.exact_tol; n equals float64's. Keyed by fragments per
-    window, with the largest n."""
+    window, with the largest n, the launch's sparse and dense F slabs and
+    its time beside the parent's kernel (``parent``, from _parent_lib)."""
     import numpy as np
     import torch
 
@@ -519,7 +721,13 @@ def _k2_coverage(dev, cfg, q, tabs) -> dict:
         if err > cfg.nuc.exact_tol or not torch.equal(got[:, 4].double(), ref[:, 4]):
             raise AssertionError(f"K2 at {n_frags} fragments per window: max|norm - f64| "
                                  f"{err:.3e} (bar {cfg.nuc.exact_tol}), or n differs")
-        out[n_frags] = {"max_n": float(ref[:, 4].max()), "norm_err": err}
+        buf = torch.empty_like(got)
+        vf = cfg.nuc.var_floor
+        t = _beside_parent(lambda: k2.nuc_scores(fmat, b0, *tabs, vf),
+                           parent and (lambda: _lib_k2(parent, fmat, b0, tabs, vf, buf)))
+        out[n_frags] = {"max_n": float(ref[:, 4].max()), "norm_err": err,
+                        "slabs": _slabs_of(dev, lambda: k2.nuc_scores(fmat, b0, *tabs, vf)),
+                        **t}
     return out
 
 
@@ -798,6 +1006,17 @@ def phase_run(data: dict) -> dict:
         raise AssertionError("no dyad calls, or occ peaks out of [0, 1]")
     windows = len(tile_chunks(res.occ.chunks, cfg.window, cfg.occ, cfg.vmat))
     progs = res.engine.programs
+    # K2's slab counters, added on the card inside the replayed graphs: the
+    # fused pass's loop record reads every batch's slabs
+    from nucleoatac_torch.utils.trace import newest
+
+    slabs = {k: v for k, v in newest().counters().items() if k.startswith("k2.")}
+    W = cfg.window.width(cfg.occ, cfg.vmat)
+    per_batch = (cfg.window.batch * -(-(W - cfg.vmat.width + 1) // 192)
+                 * -(-(cfg.vmat.upper - cfg.vmat.lower) // 8))
+    if sum(slabs.values()) != steps * per_batch:
+        raise AssertionError(f"K2 slab counters {slabs}: {steps} batches of "
+                             f"{per_batch} slabs expected")
     phase("run", f"{data['n_peaks']} peaks, {windows} windows, {steps} batches of "
           f"{cfg.window.batch}: run_pipeline {wall:.2f} s = "
           f"{windows / wall:.1f} windows/s (data synthesis {data['t_data']:.1f} s, "
@@ -805,7 +1024,8 @@ def phase_run(data: dict) -> dict:
           f"launches {launches}, occ_window {k3.LAUNCHES}, bias_mat {k4.LAUNCHES}; "
           f"occ spot-check positions "
           f"{res.occ_stage.n_spot_checked}; step programs: {progs.captures} captures, "
-          f"{progs.replays} replays, pools {progs.pool_bytes / 1e6:.1f} MB")
+          f"{progs.replays} replays, pools {progs.pool_bytes / 1e6:.1f} MB; "
+          f"K2 F slabs {slabs}")
     return {"prefix": prefix, "launches": launches, "steps": steps,
             "windows": windows, "max_qstep": res.nuc_stage.max_qstep, "wall_s": wall,
             "captures": progs.captures, "replays": progs.replays,

@@ -3,7 +3,8 @@
 // p = j + K/2):
 //   * the four 2-D template sums (signal = V.F, flogv = logV.F against F;
 //     vb = V.B0, v2b = V^2.B0 against B0) with the tensor-core tile of
-//     xcorr.cuh, one tile per input;
+//     xcorr.cuh, one tile per input, F's slab by slab on one of two
+//     routes (below);
 //   * the four rank-1 sums (n, sum F*o, sum F*o^2 against F's column sums;
 //     bsum against B0's), from column sums that the tile accumulates from
 //     its staged slabs;
@@ -25,6 +26,22 @@
 // binds: the tile puts the sums on the TF32 tensor cores, 3 products per
 // term (see xcorr.cuh), at least 0.093 ms at 495 TFLOP/s (0.228 ms on
 // the FP32 pipes, 67 TFLOP/s).
+// F's two sums skip its zero cells. F holds fragment counts: at about 900
+// fragments of the nuc size range per 1,536-bp window some 0.4% of its
+// cells are nonzero (1-2% in the densest size rows), and a product with
+// a zero cell adds exactly 0. So the tile counts each staged F slab's
+// nonzero cells (8 size rows x xcols(K) columns) in its column-sum pass
+// and sums a slab with at most kSparseMax of them from its nonzero list,
+// in float64, rounded once with the dense slabs' diagonal sums (xcorr.cuh);
+// a denser slab (a densely covered peak) takes the split-TF32 band
+// products, as B0's slabs all do. The list's least work is F's bytes and
+// two f64 products per entry and tap of its footprint, a few hundredths
+// of the band products at 0.4%; measured, the ring's staging of each slab
+// and its table rows, the count and the list cost about 0.08 ms per
+// production batch at any density (the dense F tile took about 0.23), and
+// each nonzero cell per slab about 0.0025 ms more: staging, not
+// arithmetic, bounds the list route. Each launch adds its
+// sparse and dense F slabs to `slabs` (the wrapper's two counters).
 // The rank-1 sums and the epilogue are spread over all 256 threads (4 x
 // 192 sums of K terms, then one thread per output), out of shared memory.
 // One block per (window b, tile of BW valid outputs); the first and last
@@ -36,9 +53,20 @@ namespace {
 using nucxc::BW;
 using nucxc::NT;
 
+// The crossover: a staged F slab (8 size rows x xcols(K) columns) with at
+// most this many nonzero cells is summed from its list, a denser one by the
+// band products. Measured on an H100 80GB HBM3 at 700 W with F [64, 146,
+// 1536] whose cells are 1 with probability d, on a production B0 (ms per
+// launch with every slab on the list / on the band products, by nonzero
+// cells per slab): 1.4: 0.339 / 0.443; 11.3: 0.360 / 0.465; 22.5: 0.393
+// / 0.469; 33.8: 0.421 / 0.470; 45.1: 0.448 / 0.469; 56.3: 0.475 / 0.471;
+// 70.4: 0.509 / 0.469. The two routes cost the same at about 54.
+constexpr int kSparseMax = 54;
+
 __host__ __device__ inline int extra_floats(int K) {
-  // res (signal, flogv, vb, v2b) | colsum F | colsum B0 | rank-1 sums
-  return 4 * BW + 2 * nucxc::xcols(K) + 4 * BW;
+  // res (signal, flogv, vb, v2b) | colsum F | colsum B0 | rank-1 sums |
+  // F's slab list
+  return 4 * BW + 2 * nucxc::xcols(K) + 4 * BW + nucxc::list_floats(kSparseMax);
 }
 
 __global__ void __launch_bounds__(NT, 2)
@@ -48,8 +76,9 @@ __global__ void __launch_bounds__(NT, 2)
                       const float* __restrict__ f1d,
                       const float* __restrict__ b2d,
                       const float* __restrict__ b1d,
-                      float* __restrict__ out, int S, int W, int K,
-                      float var_floor, int vec_f, int vec_b) {
+                      float* __restrict__ out,
+                      unsigned long long* __restrict__ slabs, int S, int W,
+                      int K, float var_floor, int vec_f, int vec_b) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
   const int half = K / 2;
@@ -60,13 +89,20 @@ __global__ void __launch_bounds__(NT, 2)
   float* csf = res + 4 * BW;
   float* csb = csf + XC;
   float* sums = csb + XC;  // n, foff, foff2, bsum: [4][BW]
+  float* list = sums + 4 * BW;
 
-  nucxc::xcorr_tile<true>(fmat + (size_t)b * f_bstride, f2d, S, W, K, j0,
-                          vec_f != 0, smem, res, csf);
   nucxc::xcorr_tile<true>(b0 + (size_t)b * b_bstride, b2d, S, W, K, j0,
                           vec_b != 0, smem, res + 2 * BW, csb);
+  const int ndense = nucxc::xcorr_tile<true, kSparseMax>(
+      fmat + (size_t)b * f_bstride, f2d, S, W, K, j0, vec_f != 0, smem, res,
+      csf, list);
 
   const int t = threadIdx.x;
+  if (t == 0 && slabs != nullptr) {
+    const int nst = (S + nucxc::SK - 1) / nucxc::SK;
+    atomicAdd(slabs, (unsigned long long)(nst - ndense));
+    atomicAdd(slabs + 1, (unsigned long long)ndense);
+  }
   for (int task = t; task < 4 * BW; task += NT) {
     const int q = task / BW, jl = task - q * BW;
     if (j0 + jl >= Wo) continue;
@@ -119,14 +155,17 @@ __global__ void __launch_bounds__(NT, 2)
 
 // fmat, b0: [B, S, W] float32 with rows contiguous and batch strides
 // f_bstride / b_bstride (elements); f2d, b2d: [2, K, S]; f1d: [3, K];
-// b1d: [1, K]; out: [B, 5, W]; K odd, K <= W. Returns the error of the
-// shared-memory attribute (the tile's ring takes K <= 640), else
-// cudaGetLastError() after the launch on `stream`.
+// b1d: [1, K]; out: [B, 5, W]; K odd, K <= W; slabs: null, or two
+// counters to which the launch adds its sparse and dense F slabs. Returns
+// the error of the shared-memory attribute (the tile's ring and the slab
+// list take K <= 607), else cudaGetLastError() after the launch on
+// `stream`.
 extern "C" int nucleoatac_nuc_scores(const float* fmat, long long f_bstride,
                                      const float* b0, long long b_bstride,
                                      const float* f2d, const float* f1d,
                                      const float* b2d, const float* b1d,
-                                     float* out, int B, int S, int W, int K,
+                                     float* out, unsigned long long* slabs,
+                                     int B, int S, int W, int K,
                                      float var_floor, void* stream) {
   if (K > W) return (int)cudaErrorInvalidValue;
   const size_t smem =
@@ -136,8 +175,8 @@ extern "C" int nucleoatac_nuc_scores(const float* fmat, long long f_bstride,
   const int Wo = W - K + 1;
   const dim3 grid((Wo + BW - 1) / BW, B);
   nuc_scores_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      fmat, f_bstride, b0, b_bstride, f2d, f1d, b2d, b1d, out, S, W, K,
-      var_floor, nucxc::vec_ok(fmat, f_bstride, W),
+      fmat, f_bstride, b0, b_bstride, f2d, f1d, b2d, b1d, out, slabs, S, W,
+      K, var_floor, nucxc::vec_ok(fmat, f_bstride, W),
       nucxc::vec_ok(b0, b_bstride, W));
   return (int)cudaGetLastError();
 }

@@ -55,11 +55,15 @@
 //     256 threads, 2 blocks per SM (<= 128 registers, ~78 KB shared), so
 //     264 run at once and the second wave is 248 of 264 slots full; a
 //     persistent grid would gain at most that last 6%.
+//   * K2's F tile (SPARSE_MAX >= 0) sums each sparse slab from its
+//     nonzero list in float64 and runs the band products on dense slabs
+//     only (see xcorr_tile); K1 and K2's B0 tile take every slab dense.
 //   * Column sums (K2's rank-1 sums) are added per stage into shared
 //     memory, any number of staged columns. The template width is bounded
 //     only by the ring's shared memory, which grows with the bands: at
-//     227 KB per block K1 takes K <= 672 and K2 K <= 640; past that
-//     cudaFuncSetAttribute fails and the launch returns its error.
+//     227 KB per block K1 takes K <= 672 and K2, with its slab list,
+//     K <= 607; past that cudaFuncSetAttribute fails and the launch
+//     returns its error.
 //
 // It stands for the GEMM and skew-sum of nucleoatac_tpu/ops/pallas_diag.py
 // :: _diag_kernel (K1), whose four 2-D sums K2 (pallas_kernels.py ::
@@ -139,6 +143,11 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // Issue the copies of stage rows s0..s0+SK-1: x columns [j0, j0 + xcols)
 // into xs[row][col] (stride xstride), and the table rows of every band
 // into as[b][s][(c, kk)] (stride RS). Out-of-range elements read as zero.
+// BYBAND walks the table copies band by band: thread (warp, lane) copies
+// tap kk = 4 warp + lane / 8 of each band and channel, the same elements
+// in fewer instructions (K2's F tile; K1 and K2's B0 tile keep the
+// row-group walk).
+template <bool BYBAND = false>
 __device__ __forceinline__ void load_stage(float* slot, const float* x,
                                            const float* k2d, int S, int W,
                                            int K, int j0, int s0, bool vec) {
@@ -164,6 +173,18 @@ __device__ __forceinline__ void load_stage(float* slot, const float* x,
   float* as = slot + SK * XS;
   const int ss = lane & 7;
   const bool scol = s0 + ss < S;
+  if (BYBAND) {
+    const int kk = 4 * warp + (lane >> 3);
+    const size_t cstride = (size_t)K * S;
+    float* d = as + ss * RS + kk;
+    const float* src = k2d + (size_t)kk * S + s0 + ss;
+    for (int b = 0; b < NB; ++b, d += SK * RS, src += (size_t)KB * S) {
+      const bool ok = scol && b * KB + kk < K;
+      cp_async4(d, ok ? src : k2d, ok);
+      cp_async4(d + KB, ok ? src + cstride : k2d, ok);
+    }
+    return;
+  }
   for (int rg = warp; rg < NB * 16; rg += 8) {
     const int rowid = rg * 4 + (lane >> 3);  // b * 64 + c * 32 + kk
     const int b = rowid >> 6, c = (rowid >> 5) & 1;
@@ -174,14 +195,37 @@ __device__ __forceinline__ void load_stage(float* slot, const float* x,
   }
 }
 
+// Shared memory of the slab list of xcorr_tile<COLSUM, SPARSE_MAX>, in
+// floats: each output's list sums (f64), the entries' values (f64) and
+// positions, the warps' counts.
+__host__ __device__ constexpr int list_floats(int sparse_max) {
+  return sparse_max < 0 ? 0 : 4 * BW + 3 * sparse_max + NT / 32;
+}
+
 // One input's tile. On return res[c * BW + jl] = out[c, j0 + jl] for
 // jl < BW (every thread sees it: a __syncthreads() follows) and, with
 // COLSUM, colsum[q] = sum_s x[s, j0 + q] for q < xcols(K). smem holds
 // ring_floats(K) floats; res and colsum lie outside it.
-template <bool COLSUM>
-__device__ void xcorr_tile(const float* x, const float* k2d, int S, int W,
-                           int K, int j0, bool vec, float* smem, float* res,
-                           float* colsum) {
+//
+// With SPARSE_MAX >= 0 (K2's F) the block counts each staged slab's
+// nonzero cells in the pass that adds the column sums. A slab with at
+// most SPARSE_MAX of them is summed from its list alone: each thread
+// appends the nonzero cells of its own columns (t, t + NT, ...; rows in
+// order) to `list` (list_floats(SPARSE_MAX) floats, 8-byte aligned,
+// outside smem) at its place in the block's order, and output thread jl
+// adds v * k2d[c, q - jl, s] for each entry (s, q, v) with
+// 0 <= q - jl < K, in list order, in float64. Denser slabs take the
+// band products. The f64 sums are added to the diagonal sums of the
+// dense slabs (skipped where none was dense) and rounded once. Returns
+// the number of dense slabs (every slab without the list).
+template <bool COLSUM, int SPARSE_MAX = -1>
+__device__ int xcorr_tile(const float* x, const float* k2d, int S, int W,
+                          int K, int j0, bool vec, float* smem, float* res,
+                          float* colsum, float* list = nullptr) {
+  constexpr bool SPARSE = SPARSE_MAX >= 0;
+  static_assert(COLSUM || !SPARSE, "the slab count rides on the column sums");
+  // ring depth: the sparse tile's light stages keep one copy in flight
+  constexpr int NS = SPARSE ? 2 : NSTG;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
@@ -198,29 +242,106 @@ __device__ void xcorr_tile(const float* x, const float* k2d, int S, int W,
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   if (COLSUM)
     for (int q = t; q < XC; q += NT) colsum[q] = 0.f;
+  // the slab list: output jl's sums (lsum[c * BW + jl]); the entries'
+  // values lv[e] and positions lq[e] ((row * RS) << 12 | column); each
+  // warp's count of nonzero cells
+  constexpr int CAP = SPARSE ? SPARSE_MAX : 0;
+  double* lsum = reinterpret_cast<double*>(list);
+  double* lv = lsum + (SPARSE ? 2 * BW : 0);
+  int* lq = reinterpret_cast<int*>(lv + CAP);
+  int* wcnt = lq + CAP;
+  if (SPARSE)
+    for (int i = t; i < 2 * BW; i += NT) lsum[i] = 0.0;
+  int ndense = 0;
 
 #pragma unroll
-  for (int i = 0; i < NSTG - 1; ++i) {
-    if (i < nst) load_stage(smem + i * SF, x, k2d, S, W, K, j0, i * SK, vec);
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nst)
+      load_stage<SPARSE>(smem + i * SF, x, k2d, S, W, K, j0, i * SK, vec);
     cp_async_commit();
   }
   for (int st = 0; st < nst; ++st) {
-    cp_async_wait<NSTG - 2>();
+    cp_async_wait<NS - 2>();
     __syncthreads();  // stage st landed for all; stage st-1 fully consumed
-    const int nx = st + NSTG - 1;
+    const int nx = st + NS - 1;
     if (nx < nst)
-      load_stage(smem + (nx % NSTG) * SF, x, k2d, S, W, K, j0, nx * SK, vec);
+      load_stage<SPARSE>(smem + (nx % NS) * SF, x, k2d, S, W, K, j0,
+                         nx * SK, vec);
     cp_async_commit();
 
-    const float* xs = smem + (st % NSTG) * SF;
+    const float* xs = smem + (st % NS) * SF;
     const float* as = xs + SK * XS;
+    int nz = 0;  // this thread's nonzero cells (SPARSE)
     if (COLSUM)  // each thread owns columns t, t + NT, ...
       for (int q = t; q < XC; q += NT) {
         float a = 0.f;
 #pragma unroll
-        for (int r = 0; r < SK; ++r) a += xs[r * XS + q];
+        for (int r = 0; r < SK; ++r) {
+          const float v = xs[r * XS + q];
+          a += v;
+          if (SPARSE) nz += v != 0.f;
+        }
         colsum[q] += a;
       }
+    if constexpr (SPARSE) {
+      // the thread's place in the list: an inclusive scan over the warp,
+      // then the warps before it
+      int incl = nz;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) wcnt[warp] = incl;
+      __syncthreads();
+      int total = 0, off = incl - nz;
+#pragma unroll
+      for (int w = 0; w < NT / 32; ++w) {
+        const int c = wcnt[w];
+        total += c;
+        off += w < warp ? c : 0;
+      }
+      if (total <= SPARSE_MAX) {  // the same decision in every thread
+        for (int q = t; q < XC; q += NT)
+#pragma unroll
+          for (int r = 0; r < SK; ++r) {
+            const float v = xs[r * XS + q];
+            if (v != 0.f) {
+              lv[off] = (double)v;
+              lq[off] = ((r * RS) << 12) | q;
+              ++off;
+            }
+          }
+        __syncthreads();
+        if (t < BW) {  // warps 0..5: output jl = t, both channels
+          const int jl = t;
+          // two partial sums per channel, entries taken in pairs, joined in
+          // a fixed order: the loads of a pair overlap
+          double s0 = lsum[jl], s1 = lsum[BW + jl], u0 = 0.0, u1 = 0.0;
+          for (int e = 0; e < total; e += 2) {
+            const bool two = e + 1 < total;
+            const int ea = lq[e], eb = two ? lq[e + 1] : ea;
+            // a lane outside an entry's footprint reads tap 0 and adds 0
+            const int ka = (ea & 0xfff) - jl, kb = (eb & 0xfff) - jl;
+            const bool ina = (unsigned)ka < (unsigned)K;
+            const bool inb = two && (unsigned)kb < (unsigned)K;
+            const float* pa = as + (ea >> 12) +
+                              (ina ? (ka >> 5) * (SK * RS) + (ka & 31) : 0);
+            const float* pb = as + (eb >> 12) +
+                              (inb ? (kb >> 5) * (SK * RS) + (kb & 31) : 0);
+            const double va = ina ? lv[e] : 0.0, vb = inb ? lv[e + 1] : 0.0;
+            s0 = fma(va, (double)pa[0], s0);
+            s1 = fma(va, (double)pa[KB], s1);
+            u0 = fma(vb, (double)pb[0], u0);
+            u1 = fma(vb, (double)pb[KB], u1);
+          }
+          lsum[jl] = s0 + u0;
+          lsum[BW + jl] = s1 + u1;
+        }
+        continue;
+      }
+      ++ndense;
+    }
     for (int b = 0; b < NB; ++b) {
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
@@ -251,6 +372,11 @@ __device__ void xcorr_tile(const float* x, const float* k2d, int S, int W,
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: stage D over it
+  if (SPARSE && ndense == 0) {  // every slab took the list
+    for (int i = t; i < 2 * BW; i += NT) res[i] = (float)lsum[i];
+    __syncthreads();
+    return 0;
+  }
 
   float* Ds = smem;
 #pragma unroll
@@ -271,9 +397,11 @@ __device__ void xcorr_tile(const float* x, const float* k2d, int S, int W,
     float a = 0.f;
 #pragma unroll 8
     for (int kk = 0; kk < KB; ++kk) a += d[kk * (DS + 1)];
-    res[task] = a;
+    // the list sums join the dense slabs' once
+    res[task] = SPARSE ? (float)(lsum[task] + (double)a) : a;
   }
   __syncthreads();  // res complete; the ring may be refilled
+  return ndense;
 }
 
 // x [S, W] rows are copied 16 bytes at a time when the window base is

@@ -97,7 +97,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nucleoatac_diag_xcorr.argtypes = [p, i64, p, p, i32, i32, i32, i32, p]
     lib.nucleoatac_nuc_scores.restype = i32
     lib.nucleoatac_nuc_scores.argtypes = [
-        p, i64, p, i64, p, p, p, p, p, i32, i32, i32, i32, ctypes.c_float, p,
+        p, i64, p, i64, p, p, p, p, p, p, i32, i32, i32, i32, ctypes.c_float, p,
     ]
     lib.nucleoatac_occ_window.restype = i32
     lib.nucleoatac_occ_window.argtypes = [

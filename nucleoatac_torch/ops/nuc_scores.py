@@ -5,6 +5,11 @@ From F and B0 of a window batch, one launch of csrc/nuc_scores.cu computes
 the eight footprint reductions, the score epilogue and the edge mask and
 writes only [B, 5, W] = (norm, signal, lr, fuzz, n). On a CPU tensor the
 wrapper runs the plain version (ops/xcorr.py); it never falls back.
+
+Each launch adds its sparse and dense F slabs (the two routes of the
+kernel's F sums) to a two-counter buffer of its card, made at the card's
+first launch and kept, so that a captured graph's replays add to it too.
+The tracer reads them as ``k2.sparse_slabs`` and ``k2.dense_slabs``.
 """
 from __future__ import annotations
 
@@ -12,11 +17,37 @@ import torch
 
 from nucleoatac_torch.kernels import check_cuda_f32, load_library, stream_handle
 from nucleoatac_torch.ops.xcorr import finish_scores, nuc_conv_outputs_diag, pad_valid
+from nucleoatac_torch.utils.trace import TRACER
 
 # kernel launches made by nuc_scores (plain CPU calls are not counted)
 LAUNCHES = 0
 
 CHANNELS = ("norm", "signal", "lr", "fuzz", "n")
+
+SLAB_COUNTERS = ("k2.sparse_slabs", "k2.dense_slabs")
+# device -> int64 [2]: the slabs every launch on that card took on each route
+_SLABS: dict = {}
+TRACER.device_counters(SLAB_COUNTERS, lambda: list(_SLABS.values()))
+
+
+def slab_counts(device) -> tuple:
+    """(sparse, dense) F slabs of every launch on ``device`` so far (a
+    sync); (0, 0) before its first launch."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    buf = _SLABS.get(dev)
+    return (0, 0) if buf is None else tuple(buf.tolist())
+
+
+def _slab_buffer(dev: torch.device) -> torch.Tensor:
+    buf = _SLABS.get(dev)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("nuc_scores: the first launch on a card must run "
+                               "before a graph capture (its slab counters)")
+        buf = _SLABS[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return buf
 
 
 def nuc_scores_plain(frag_mat, b0, f2d, f1d, b2d, b1d, var_floor: float):
@@ -64,10 +95,12 @@ def nuc_scores(
     # the launch and its shared-memory attribute go to the tensors' card,
     # whatever the process's current device is
     with torch.cuda.device(dev):
+        slabs = _slab_buffer(dev)
         rc = lib.nucleoatac_nuc_scores(
             frag_mat.data_ptr(), frag_mat.stride(0), b0.data_ptr(), b0.stride(0),
             f2d.data_ptr(), f1d.data_ptr(), b2d.data_ptr(), b1d.data_ptr(),
-            out.data_ptr(), B, S, W, K, float(var_floor), stream_handle(dev),
+            out.data_ptr(), slabs.data_ptr(), B, S, W, K, float(var_floor),
+            stream_handle(dev),
         )
     if rc != 0:
         raise RuntimeError(f"nuc_scores kernel launch failed: CUDA error {rc}")

@@ -26,6 +26,13 @@ replayed step to a stage.
 Summing is always on. Off the profiler a span costs one object, two clock
 reads and two dict updates (PERF.md gives the cost measured on the card's
 host).
+
+A device counter (``device_counters(names, buffers)``) is summed by a
+kernel on the card, into integer tensors of fixed address that a replayed
+graph adds to as well; the host adds nothing per batch. A record copies
+their values on the card when it opens (no sync) and reads the difference
+only when its counters are read, which waits for the card. They count
+whatever ran in the loop's time, a profiled stretch included.
 """
 from __future__ import annotations
 
@@ -42,9 +49,12 @@ class Record:
     """The totals of one batch loop, per thread: ns and calls of each span
     and each counter's sum, merged when read."""
 
-    def __init__(self, label: str):
+    def __init__(self, label: str, sources: tuple = ()):
         self.label = label
         self._threads: dict = {}  # thread ident -> (span ns, span calls, counters)
+        # (names, buffers, {buffer's address: its values when the record opened})
+        self._device = [(names, buffers, {b.data_ptr(): b.clone() for b in buffers()})
+                        for names, buffers in sources]
 
     def _acc(self) -> tuple:
         """This thread's accumulators (made on its first use)."""
@@ -65,11 +75,18 @@ class Record:
         return {k: (ns[k] / 1e9, n) for k, n in calls.items()}
 
     def counters(self) -> dict:
-        """{name: n} over every thread."""
+        """{name: n} over every thread, and the device counters since the
+        record opened (read from the card)."""
         out: dict = {}
         for _, _, ct in list(self._threads.values()):
             for name, n in dict(ct).items():
                 out[name] = out.get(name, 0) + n
+        for names, buffers, base in self._device:
+            for buf in buffers():
+                b0 = base.get(buf.data_ptr())
+                vals = (buf - b0 if b0 is not None else buf).tolist()
+                for name, n in zip(names, vals):
+                    out[name] = out.get(name, 0) + int(n)
         return out
 
     def seconds(self, name: str) -> float:
@@ -120,6 +137,7 @@ class Tracer:
     """Spans and counters into the newest loop record (``rec``)."""
 
     def __init__(self):
+        self.sources: list = []  # (names, buffers) of the device counters
         self.rec = Record("process")
 
     def span(self, name: str) -> _Span:
@@ -132,9 +150,15 @@ class Tracer:
         ct = (rec._threads.get(get_ident()) or rec._acc())[2]
         ct[name] = ct.get(name, 0) + n
 
+    def device_counters(self, names: tuple, buffers) -> None:
+        """Counters ``names`` that kernels sum on the card: ``buffers()``
+        gives the integer tensors (one per card, one value per name) as
+        they are now. Records opened from now on report them."""
+        self.sources.append((tuple(names), buffers))
+
     def open_loop(self, label: str) -> Record:
         """A new record, the newest from now on."""
-        self.rec = Record(label)
+        self.rec = Record(label, tuple(self.sources))
         return self.rec
 
     def newest(self) -> Record:

@@ -246,3 +246,116 @@ def test_tile_plan_of_xcorr_cuh_equals_plain(S, W, K):
                          axis=1)[:, :Wo]
     want = k1.conv_stack_diag(torch.from_numpy(x[None]), torch.from_numpy(k2d))[0].numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
+# ---------------- the slab plan of K2's F sums (csrc/nuc_scores.cu) --------
+def _sparse_max():
+    import re
+
+    src = k1.__file__.rsplit("ops", 1)[0] + "csrc/nuc_scores.cu"
+    return int(re.search(r"constexpr int kSparseMax = (\d+);", open(src).read())[1])
+
+
+def _slab_plan(x, k2d, j0, c, smax):
+    """One tile of K2's F sums in float64, as the kernel plans them: each
+    staged slab of SK size rows counts its nonzero cells; a slab with at
+    most ``smax`` is summed from its list (the cells of column q owned by
+    thread q mod NT, threads in order, each thread's columns in order and
+    rows in order within a column), output jl adding v * k2d[ch, q - jl,
+    s] for each entry (s, q, v) with 0 <= q - jl < K; a denser one takes
+    the band products into D, whose diagonal sum joins the list sums at
+    the end. Returns (out [2, BW], sparse slabs, dense slabs)."""
+    S, W = x.shape
+    K = k2d.shape[1]
+    BW, KB, NCOL, SK = c["BW"], c["KB"], c["NCOL"], c["SK"]
+    NB = -(-K // KB)
+    XC = (BW + NB * KB - 1 + 3) & ~3
+    xs = torch.zeros((S, XC), dtype=torch.float64)
+    xs[:, : max(0, min(W, j0 + XC) - j0)] = x[:, j0:j0 + XC]
+    D = torch.zeros((2 * KB, NCOL), dtype=torch.float64)
+    listed = torch.zeros((2, BW), dtype=torch.float64)
+    jl = torch.arange(BW)
+    n_sparse = n_dense = 0
+    for s0 in range(0, S, SK):
+        slab = xs[s0:s0 + SK]
+        nz = torch.nonzero(slab)
+        if len(nz) <= smax:
+            n_sparse += 1
+            NT = c["NT"]
+            order = torch.argsort(((nz[:, 1] % NT) * XC + nz[:, 1] // NT) * SK + nz[:, 0])
+            r, q = nz[order, 0], nz[order, 1]
+            k = q[:, None] - jl[None, :]
+            foot = (k >= 0) & (k < K)
+            kc = k.clamp(0, K - 1)
+            v = slab[r, q][:, None]
+            for ch in range(2):
+                listed[ch] += torch.where(foot, v * k2d[ch][kc, (s0 + r)[:, None]],
+                                          0.0).sum(0)
+        else:
+            n_dense += 1
+            for b in range(NB):
+                A = torch.zeros((2, KB, len(slab)), dtype=torch.float64)
+                kk = torch.arange(b * KB, min(K, (b + 1) * KB))
+                A[:, : len(kk)] = k2d[:, kk, s0:s0 + len(slab)]
+                D += A.reshape(2 * KB, len(slab)) @ slab[:, b * KB: b * KB + NCOL]
+    kk = torch.arange(KB)[:, None]
+    diag = torch.stack([D[ch * KB:(ch + 1) * KB][kk, jl[None, :] + kk].sum(0)
+                        for ch in range(2)])
+    return listed + diag, n_sparse, n_dense
+
+
+def _slab_density(S, W, K, rows, rng, smax, c):
+    """F [S, W] with non-integer values (and zeros): ``rows`` names the
+    density of each size row; "crossover" puts exactly smax nonzero cells
+    in the first tile's first slab and smax + 1 in its second."""
+    if rows == "crossover":
+        x = (rng.random((S, W)) < 0.002) * (0.25 + rng.random((S, W)))
+        XC = (c["BW"] + -(-K // c["KB"]) * c["KB"] - 1 + 3) & ~3
+        for r0, n in ((0, smax), (c["SK"], smax + 1)):
+            rows_in = min(c["SK"], S - r0)
+            x[r0:r0 + rows_in, :XC] = 0.0
+            cells = rng.choice(rows_in * XC, n, replace=False)
+            x[r0 + cells // XC, cells % XC] = 0.25 + rng.random(n)
+        return x
+    dens = {"cell": [0.004], "tenfold": [0.04], "mixed": [0.003, 0.6],
+            "dense": [0.5], "full": [1.0]}[rows]
+    p = np.array([dens[(s // c["SK"]) % len(dens)] for s in range(S)])[:, None]
+    return (rng.random((S, W)) < p) * (0.25 + rng.random((S, W)))
+
+
+@pytest.mark.parametrize("rows", ["cell", "tenfold", "mixed", "dense", "full", "crossover"])
+@pytest.mark.parametrize("S,W,K", [(146, 1536, 147), (34, 512, 37), (12, 1024, 401)])
+def test_slab_plan_of_nuc_scores_cu_equals_plain(S, W, K, rows):
+    """K2's F sums as the kernel plans them (the slab count, the crossover
+    read from csrc/nuc_scores.cu, the list in its order with its
+    footprint test, the band products of the dense slabs) equal the
+    dense cross-correlation, in float64, at five densities and at the
+    crossover; the routes the slabs take follow the rule."""
+    c = _cuh_constants()
+    smax = _sparse_max()
+    rng = np.random.default_rng(K + len(rows))
+    x = _slab_density(S, W, K, rows, rng, smax, c)
+    k2d = rng.standard_normal((2, K, S))
+    Wo = W - K + 1
+    xt, kt = torch.from_numpy(x), torch.from_numpy(k2d)
+    tiles = [_slab_plan(xt, kt, j0, c, smax) for j0 in range(0, Wo, c["BW"])]
+    got = torch.cat([t[0] for t in tiles], dim=1)[:, :Wo].numpy()
+    want = k1.conv_stack_diag(xt[None], kt)[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+    sparse, dense = sum(t[1] for t in tiles), sum(t[2] for t in tiles)
+    assert sparse + dense == len(tiles) * -(-S // c["SK"])
+    if rows == "cell":
+        assert dense == 0
+    if rows == "full":  # every cell nonzero: dense where a slab holds more than smax
+        XC = (c["BW"] + -(-K // c["KB"]) * c["KB"] - 1 + 3) & ~3
+        assert dense == sum(min(c["SK"], S - s0) * min(XC, W - j0) > smax
+                            for j0 in range(0, Wo, c["BW"]) for s0 in range(0, S, c["SK"]))
+    if rows == "dense":
+        assert dense > sparse
+    if rows in ("mixed", "crossover"):
+        assert sparse > 0 and dense > 0
+    if rows == "crossover":  # the first tile: smax cells sparse, smax + 1 dense
+        assert tiles[0][1] >= 1 and tiles[0][2] >= 1
+        SK = c["SK"]
+        assert _slab_plan(xt[:SK], kt[:, :, :SK], 0, c, smax)[1:] == (1, 0)
+        assert _slab_plan(xt[SK:2 * SK], kt[:, :, SK:2 * SK], 0, c, smax)[1:] == (0, 1)

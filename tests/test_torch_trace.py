@@ -4,6 +4,8 @@ on the CPU:
   * spans nest, each with its inclusive time and its calls; counters sum;
   * threads of a pool sum into their own accumulators, merged when read,
     with no update lost;
+  * device counters (a kernel's fixed buffers) read since their record
+    opened;
   * each _pipelined call opens a fresh loop record, the only one the
     tracer keeps; the loop's spans count its batches;
   * under a CPU torch.profiler session a span is a user annotation of its
@@ -85,6 +87,27 @@ def test_threads_of_a_pool_lose_no_update():
     rec = t.newest()
     assert rec.calls("work") == rec.counter("done") == n_tasks * per_task
     assert len(rec._threads) == len(idents) > 1
+
+
+def test_device_counters_are_read_since_the_record_opened():
+    """A device counter (a kernel's fixed buffer, here a CPU tensor) reads
+    what was added since its record opened, summed over its buffers; a
+    buffer made after the record opened counts whole; the K2 slab
+    counters are registered with the process's tracer."""
+    t = trace.Tracer()
+    bufs = [torch.tensor([3, 4], dtype=torch.int64)]
+    t.device_counters(("a.sparse", "a.dense"), lambda: list(bufs))
+    rec = t.open_loop("loop")
+    bufs[0] += torch.tensor([5, 1])
+    assert rec.counters() == {"a.sparse": 5, "a.dense": 1}
+    bufs.append(torch.tensor([2, 0], dtype=torch.int64))
+    t.count("a.sparse", 10)
+    assert rec.counter("a.sparse") == 17 and rec.counter("a.dense") == 1
+    assert t.open_loop("next").counters() == {"a.sparse": 0, "a.dense": 0}
+    from nucleoatac_torch.ops import nuc_scores as k2
+
+    assert any(n == k2.SLAB_COUNTERS for n, _ in trace.TRACER.sources)
+    assert trace.TRACER.open_loop("cpu").counter("k2.sparse_slabs") == 0
 
 
 def _cpu_loop(n: int, depth: int = 3):
